@@ -1,25 +1,39 @@
-"""Public solver entry points over the batched kernels (c, d, e).
+"""Public solver entry points over the port's kernels (a-g).
 
-The port of the batched, bucketed and stepped subset of
-``repro.kernels.ops``:
+The port of the dense half of ``repro.kernels.ops``:
 
+* ``solve_fused`` — one problem, streamed: kernel a (``colsum``) once and
+  kernel b (``fused_iteration``) per iteration for exactly
+  ``cfg.num_iters`` iterations; ``impl='auto'`` / ``'resident'`` route it
+  to the resident tier or, over budget, to ``solve_fused_batched`` at B=1
+  with ``cfg.tol``;
 * ``solve_fused_batched`` — a stack of same-shape problems, one kernel
   launch per iteration for the whole stack (kernel c for the initial
   column sums, kernel d per iteration; kernel e per iteration when
   ``cfg.tol`` freezes lanes one by one);
+* ``solve_fused_resident`` — the whole solve of each lane in one launch
+  of kernel f, the tile resident in shared memory;
 * ``solve_fused_bucketed`` — a ragged problem list grouped into
-  padded-shape buckets, each solved by ``solve_fused_batched``;
+  padded-shape buckets, each chunk solved by the batched or resident tier;
 * ``LaneState`` + ``lane_admit`` / ``lane_evict`` / ``lane_done`` +
   ``solve_fused_stepped`` — the steppable lane pool the serving
-  scheduler advances a chunk of iterations at a time (kernel e, plus
-  kernel c for an admitted lane's initial column sums).
+  scheduler advances a chunk of iterations at a time (kernel e per
+  iteration, or kernel g per chunk on the resident tier; kernel c for an
+  admitted lane's initial column sums).
+
+``impl`` takes None or ``'kernel'`` (the streamed kernels), ``'resident'``
+(the resident tier; a shape over its budget raises ``ValueError``) or
+``'auto'`` (resident when ``resident_fits``, streamed otherwise; stepped
+pools of sub-fp32 storage always stream). ``'auto'`` decisions are counted
+(``dispatch_stats``, ``dispatch_counters``) and reported to
+``dispatch_observer`` subscribers; a ``dispatch_advisor`` may turn a
+resident-eligible shape to streamed.
 
 Entry points run on the card unless the caller asks for the CPU
-(``device=`` on ``solve_fused_batched``, ``solve_fused_bucketed`` and
-``make_lane_state``; a pool's functions follow the pool). Without CUDA the
-default raises. On a CPU device every kernel wrapper takes its plain
-PyTorch version, which is how the tests run the port against the JAX
-reference.
+(``device=`` on the one-shot solvers and ``make_lane_state``; a pool's
+functions follow the pool). Without CUDA the default raises. On a CPU
+device every kernel wrapper takes its plain PyTorch version, which is how
+the tests run the port against the JAX reference.
 
 What differs from the reference, by design:
 
@@ -27,22 +41,23 @@ What differs from the reference, by design:
   functions (``lane_admit``, ``lane_evict``, ``solve_fused_stepped``)
   update the pool's tensors in place and return the same ``LaneState``.
 * **No alignment padding.** The CUDA kernels mask ragged edges, so
-  ``make_lane_state(L, M, N)`` holds exactly (L, M, N) and
-  ``solve_fused_batched`` pads nothing. ``bucket_shape``'s ``m_bucket`` /
-  ``n_bucket`` keep their meaning (they decide which problems share a
-  pool); the TPU's (8, 128) tiling and 32 MiB VMEM budget have no
-  counterpart here — ``pick_block_m`` is Hopper's (shared memory per
-  block, see ``uot_batched.plan_for``).
+  ``make_lane_state(L, M, N)`` holds exactly (L, M, N) and the solvers
+  pad nothing. ``bucket_shape``'s ``m_bucket`` / ``n_bucket`` keep their
+  meaning (they decide which problems share a pool); the TPU's (8, 128)
+  tiling and 32 MiB VMEM budget have no counterpart here —
+  ``pick_block_m`` and ``resident_fits`` are Hopper's (shared memory per
+  block, see ``uot_batched.plan_for`` and
+  ``uot_resident.resident_smem_bytes``).
 * **Host traffic.** Payloads cross to the card through pinned memory in
   one copy per batch; results come back the same way.
 
-``impl`` takes None or ``'kernel'`` (both mean the kernels above).
-``'auto'`` / ``'resident'`` (the whole-solve resident tier, kernels f, g)
-and ``geometry=`` (kernels h-k) raise ``NotImplementedError`` until their
-slices land.
+``geometry=`` (kernels h-k) raises ``NotImplementedError`` until its
+slice lands.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 
 import numpy as np
@@ -51,20 +66,20 @@ import torch
 from repro_torch.core.convergence import lane_factor_drift
 from repro_torch.core.problem import UOTConfig, rescale_factors
 from repro_torch.device import resolve_device
-from repro_torch.kernels import uot_batched
-from repro_torch.kernels.uot_batched import pick_block_m
+from repro_torch.kernels import uot_batched, uot_fused, uot_resident
+from repro_torch.kernels.uot_batched import SMEM_LIMIT, pick_block_m
 
 __all__ = [
-    "pad_to", "pad_vec", "pick_block_m", "solve_fused_batched",
+    "pad_to", "pad_vec", "pick_block_m", "resident_fits", "dispatch_counters",
+    "dispatch_observer", "dispatch_advisor", "dispatch_stats",
+    "reset_dispatch_stats", "solve_fused", "solve_fused_resident",
+    "solve_fused_stepped_resident", "solve_fused_batched",
     "solve_fused_bucketed", "bucket_shape", "bucket_problems",
     "canonical_batch", "bucketed_cache_stats", "reset_bucketed_cache_stats",
     "LaneState", "make_lane_state", "lane_admit", "lane_evict", "lane_done",
     "solve_fused_stepped", "to_device", "to_host",
 ]
 
-_RESIDENT_SLICE = ("the resident tier (impl='auto'/'resident', kernels f "
-                   "and g) arrives with the resident slice of the port "
-                   "(ROADMAP Open items 1, item 5)")
 _GEOMETRY_SLICE = ("cost geometries (geometry=, kernels h-k) arrive with the "
                    "geometry slice of the port (ROADMAP Open items 1, item 6)")
 # how often the tol batched solve reads back "all lanes converged"
@@ -72,10 +87,9 @@ _CONV_CHECK_EVERY = 4
 
 
 def _check_impl(impl) -> None:
-    if impl in ("auto", "resident"):
-        raise NotImplementedError(_RESIDENT_SLICE)
-    if impl not in (None, "kernel"):
-        raise ValueError(f"impl must be None or 'kernel', got {impl!r}")
+    if impl not in (None, "kernel", "auto", "resident"):
+        raise ValueError(f"impl must be None, 'kernel', 'auto' or "
+                         f"'resident', got {impl!r}")
 
 
 def _storage(cfg: UOTConfig, storage_dtype) -> torch.dtype:
@@ -84,6 +98,139 @@ def _storage(cfg: UOTConfig, storage_dtype) -> torch.dtype:
         raise TypeError(f"storage dtype must be torch.float32 or "
                         f"torch.bfloat16, got {sdt}")
     return sdt
+
+
+# ---- the resident tier's budget and the impl='auto' dispatch ----------------
+
+def resident_fits(M: int, N: int, cfg: UOTConfig, *,
+                  storage_dtype=None) -> bool:
+    """Whether an (M, N) problem can run on the resident tier (kernels f
+    and g) of this card.
+
+    Rebuilt for Hopper: a lane runs in one block, whose shared memory
+    (``SMEM_LIMIT`` = 232,448 bytes on an H100) holds only the fp32
+    working tile, ``M*N*4`` bytes, plus the O(M + N) vectors and the
+    reduction scratch (``uot_resident.resident_smem_bytes``). The storage
+    tile is read from and written to device memory directly, so fp32 and
+    bf16 storage have the same budget, and there is no (8, 128) padding.
+    For example 128x384 fits (200,832 bytes) and 256x256 does not. The
+    reference's 32 MiB VMEM model (in and out tiles double-buffered) has
+    no counterpart. The test is static, and the batch size does not enter
+    it: each lane is its own block.
+    """
+    _storage(cfg, storage_dtype)
+    return uot_resident.lane_fits(M, N)
+
+
+# ``impl='auto'`` routing decisions, observable so the dispatch boundary is
+# assertable in tests and visible in benchmarks. Only 'auto' counts: an
+# explicit impl is the caller's decision. The counters are per context: the
+# module-global dict is the base of a contextvar-held stack, and
+# ``dispatch_counters()`` pushes a fresh dict for the extent of a ``with``
+# block. Every decision increments every dict on the stack, and
+# ``dispatch_stats()`` / ``reset_dispatch_stats()`` address the innermost
+# scope, so two schedulers (or two tests) observe their own decisions.
+_DISPATCH_GLOBAL = {"resident": 0, "streamed": 0}
+_DISPATCH_CTX: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "uot_torch_dispatch_counters", default=(_DISPATCH_GLOBAL,))
+_DISPATCH_OBS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "uot_torch_dispatch_observers", default=())
+_DISPATCH_ADVISORS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "uot_torch_dispatch_advisors", default=())
+
+
+@contextlib.contextmanager
+def dispatch_counters():
+    """Isolated ``impl='auto'`` decision counters for a ``with`` block:
+    yields a ``{'resident': 0, 'streamed': 0}`` dict that counts only the
+    decisions made inside the block (in this thread / task); enclosing
+    scopes keep counting too."""
+    counters = {"resident": 0, "streamed": 0}
+    token = _DISPATCH_CTX.set(_DISPATCH_CTX.get() + (counters,))
+    try:
+        yield counters
+    finally:
+        _DISPATCH_CTX.reset(token)
+
+
+@contextlib.contextmanager
+def dispatch_observer(cb):
+    """Subscribe ``cb(kind, M=, N=, itemsize=, num_iters=)`` to
+    every ``impl='auto'`` routing decision made in the extent of the
+    ``with`` block (this thread / task). ``kind`` is ``'resident'`` or
+    ``'streamed'``; ``itemsize`` is the resolved storage dtype's;
+    ``num_iters`` the config's iteration budget. Observers stack like the
+    counters."""
+    token = _DISPATCH_OBS.set(_DISPATCH_OBS.get() + (cb,))
+    try:
+        yield cb
+    finally:
+        _DISPATCH_OBS.reset(token)
+
+
+@contextlib.contextmanager
+def dispatch_advisor(advisor):
+    """Install ``advisor.advise(M=, N=, itemsize=, stepped=) ->
+    'resident' | 'streamed' | None`` for ``impl='auto'`` resolutions in the
+    extent of the ``with`` block. The innermost advisor with an opinion
+    wins; None defers to ``resident_fits``. Advice is taken only where the
+    budget already allows resident: an advisor can send a resident-eligible
+    shape to the streamed tier, never the reverse."""
+    token = _DISPATCH_ADVISORS.set(_DISPATCH_ADVISORS.get() + (advisor,))
+    try:
+        yield advisor
+    finally:
+        _DISPATCH_ADVISORS.reset(token)
+
+
+def dispatch_stats() -> dict:
+    """{'resident': ..., 'streamed': ...} decisions made by ``impl='auto'``
+    in the innermost ``dispatch_counters()`` scope (the process-wide totals
+    outside any scope)."""
+    return dict(_DISPATCH_CTX.get()[-1])
+
+
+def reset_dispatch_stats() -> None:
+    """Zero the innermost scope's counters."""
+    _DISPATCH_CTX.get()[-1].update(resident=0, streamed=0)
+
+
+def _resolve_auto(impl, M: int, N: int, cfg: UOTConfig, storage_dtype, *,
+                  stepped_sdt=None) -> bool:
+    """Resolve 'auto' / 'resident' to a tier for an (M, N) problem; True
+    routes resident.
+
+    For a stepped pool pass its storage dtype as ``stepped_sdt``: sub-fp32
+    pools never route resident under 'auto', because kernel g rounds the
+    tile once per chunk instead of once per iteration, which would make a
+    bf16 lane's iterates depend on chunk boundaries (explicit 'resident'
+    still allows it). 'resident' over budget raises ``ValueError``.
+    """
+    fits = resident_fits(M, N, cfg, storage_dtype=storage_dtype)
+    if impl == "resident":
+        if not fits:
+            raise ValueError(
+                f"({M}, {N}) exceeds the resident budget (one block's "
+                f"shared memory, {SMEM_LIMIT} bytes); use impl='auto' to "
+                f"fall back to the streamed tier")
+        return True
+    sdt = _storage(cfg, stepped_sdt if stepped_sdt is not None
+                   else storage_dtype)
+    s = sdt.itemsize
+    resident = fits and not (stepped_sdt is not None and s < 4)
+    if resident:
+        for adv in reversed(_DISPATCH_ADVISORS.get()):
+            choice = adv.advise(M=M, N=N, itemsize=s,
+                                stepped=stepped_sdt is not None)
+            if choice in ("resident", "streamed"):
+                resident = choice == "resident"
+                break
+    kind = "resident" if resident else "streamed"
+    for counters in _DISPATCH_CTX.get():
+        counters[kind] += 1
+    for cb in _DISPATCH_OBS.get():
+        cb(kind, M=M, N=N, itemsize=s, num_iters=cfg.num_iters)
+    return resident
 
 
 # ---- host <-> device ---------------------------------------------------------
@@ -153,6 +300,60 @@ def _stepped_iter(A, colsum, upd, *, ap, bp, fi):
                                                     fi=fi)
 
 
+# ---- one problem -------------------------------------------------------------
+
+def solve_fused(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
+                impl: str | None = None, geometry=None, device=None):
+    """MAP-UOT solve of one (M, N) problem on ``device`` (default the card).
+
+    A0: (M, N); a: (M,); b: (N,) — numpy arrays or tensors, copied to the
+    device in the storage dtype (``storage_dtype``, default ``cfg.dtype``);
+    every sum and factor is fp32. Returns (P, colsum) tensors of shapes
+    (M, N) and (N,).
+
+    ``impl``: None / 'kernel' stream the coupling through kernels a and b
+    for exactly ``cfg.num_iters`` iterations and ignore ``cfg.tol``, as the
+    reference's default path does. 'resident' runs the whole solve on
+    kernel f and honours ``cfg.tol``; a shape over ``resident_fits``
+    raises ``ValueError``. 'auto' picks by ``resident_fits`` and, over
+    budget, streams through ``solve_fused_batched`` at B=1 *with*
+    ``cfg.tol``, so results differ by tier in traffic, never in math.
+    """
+    if geometry is not None:
+        raise NotImplementedError(_GEOMETRY_SLICE)
+    _check_impl(impl)
+    if impl in ("auto", "resident"):
+        M, N = np.shape(A0)
+        if _resolve_auto(impl, M, N, cfg, storage_dtype):
+            P, colsum, _, _ = solve_fused_resident(
+                A0, a, b, cfg, storage_dtype=storage_dtype, device=device)
+            return P, colsum
+        P, colsum = solve_fused_batched(
+            _lead(A0), _lead(a), _lead(b), cfg, storage_dtype=storage_dtype,
+            device=device)
+        return P[0], colsum[0]
+    dev = resolve_device(device)
+    A = to_device(A0, dev).to(_storage(cfg, storage_dtype))
+    return _solve_fused_streamed(A, to_device(a, dev).float(),
+                                 to_device(b, dev).float(), cfg)
+
+
+def _lead(x):
+    """``x`` with a leading batch axis of one (numpy or tensor)."""
+    return x[None] if isinstance(x, torch.Tensor) else np.asarray(x)[None]
+
+
+def _solve_fused_streamed(A, a, b, cfg: UOTConfig):
+    """Exactly ``cfg.num_iters`` streamed iterations, in place on ``A``:
+    kernel a for the initial column sums, kernel b per iteration."""
+    fi = cfg.fi
+    colsum = uot_fused.colsum(A)
+    for _ in range(cfg.num_iters):
+        fcol = rescale_factors(b, colsum, fi)
+        A, colsum = uot_fused.fused_iteration(A, fcol, a, fi=fi)
+    return A, colsum
+
+
 # ---- one-shot batched solve --------------------------------------------------
 
 def solve_fused_batched(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
@@ -168,11 +369,20 @@ def solve_fused_batched(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
     With ``cfg.tol`` set the solve early-exits per lane: a lane whose
     row-factor stationarity drift falls to ``tol`` is frozen at exactly
     that iterate, and the loop ends when every lane has converged (read
-    back every few iterations) or ``num_iters`` is hit.
+    back every few iterations) or ``num_iters`` is hit. ``impl='resident'``
+    runs the whole solve on kernel f (bf16 storage is rounded once at the
+    end instead of every iteration); ``impl='auto'`` picks the tier by
+    ``resident_fits``.
     """
     if geometry is not None:
         raise NotImplementedError(_GEOMETRY_SLICE)
     _check_impl(impl)
+    if impl in ("auto", "resident"):
+        _, M, N = np.shape(A0)
+        if _resolve_auto(impl, M, N, cfg, storage_dtype):
+            P, colsum, _, _ = solve_fused_resident(
+                A0, a, b, cfg, storage_dtype=storage_dtype, device=device)
+            return P, colsum
     dev = resolve_device(device)
     sdt = _storage(cfg, storage_dtype)
     A = to_device(A0, dev).to(sdt)
@@ -200,6 +410,45 @@ def _solve_fused_batched_streamed(A, a, b, cfg: UOTConfig):
         prev_frow = torch.where(upd[:, None], frow, prev_frow)
         conv = conv | (upd & (drift <= cfg.tol))
     return A, colsum
+
+
+# ---- the resident tier --------------------------------------------------------
+
+def solve_fused_resident(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
+                         geometry=None, device=None):
+    """Whole-solve resident MAP-UOT on kernel f: load once, iterate,
+    store once.
+
+    A0 may be (M, N) or (B, M, N) (a, b matching), numpy or tensors,
+    copied to ``device`` (default the card) in the storage dtype. Each
+    lane honours ``cfg.tol`` with the streamed solvers' row-factor
+    stationarity criterion: same iterate, same iteration count. Raises
+    ``ValueError`` for a shape over ``resident_fits``.
+
+    Returns (P, colsum, iters, err), with a leading batch axis only if A0
+    had one.
+    """
+    if geometry is not None:
+        raise NotImplementedError(_GEOMETRY_SLICE)
+    single = len(np.shape(A0)) == 2
+    M, N = np.shape(A0)[-2:]
+    if not resident_fits(M, N, cfg, storage_dtype=storage_dtype):
+        raise ValueError(
+            f"({M}, {N}) exceeds the resident budget (one block's shared "
+            f"memory, {SMEM_LIMIT} bytes); use impl='auto' to fall back to "
+            f"the streamed tier")
+    dev = resolve_device(device)
+    A = to_device(A0, dev).to(_storage(cfg, storage_dtype))
+    a = to_device(a, dev).float()
+    b = to_device(b, dev).float()
+    if single:
+        A, a, b = A[None], a[None], b[None]
+    P, colsum, iters, err = uot_resident.resident_solve(
+        A, a.contiguous(), b.contiguous(), fi=cfg.fi,
+        num_iters=cfg.num_iters, tol=cfg.tol)
+    if single:
+        return P[0], colsum[0], iters[0], err[0]
+    return P, colsum, iters, err
 
 
 # ---- steppable solving: explicit carried state for continuous batching -------
@@ -393,10 +642,56 @@ def solve_fused_stepped(state: LaneState, n_iters: int, cfg: UOTConfig, *,
     converged and below ``cfg.num_iters``; with ``cfg.tol`` a lane whose
     drift reaches tol has ``converged`` latched and is frozen at exactly
     that iterate, so its answer does not depend on chunk boundaries or on
-    what shares the pool. Nothing is read back to the host.
+    what shares the pool. Nothing is read back to the host. None /
+    'kernel' stream the pool through kernel e every iteration;
+    'resident' runs the chunk on kernel g (``solve_fused_stepped_resident``)
+    and 'auto' routes by ``resident_fits`` — fp32 pools only, since kernel
+    g rounds sub-fp32 storage once per chunk rather than once per
+    iteration.
     """
     _check_impl(impl)
+    if impl in ("auto", "resident"):
+        M, N = state.P.shape[1:]
+        if _resolve_auto(impl, M, N, cfg, state.P.dtype,
+                         stepped_sdt=state.P.dtype):
+            return solve_fused_stepped_resident(state, n_iters, cfg)
     return _solve_fused_stepped_streamed(state, n_iters, cfg)
+
+
+def solve_fused_stepped_resident(state: LaneState, n_iters: int,
+                                 cfg: UOTConfig) -> LaneState:
+    """``solve_fused_stepped`` on kernel g: one launch advances every live
+    lane up to ``n_iters`` iterations with its tile in shared memory (read
+    and write M*N per chunk instead of per iteration), in place. Per-lane
+    gating and the tol freeze run inside the kernel, so iterates, counts
+    and chunk-boundary behaviour match the streamed path for fp32 pools;
+    bf16 pools are rounded once per chunk.
+
+    Unhealthy lanes enter the kernel as converged, so it leaves them
+    untouched. Fresh poison is caught once per chunk from the returned
+    frow and colsum (O(L*(M+N)) values; the tile is never rescanned): a
+    lane that goes non-finite mid-chunk runs out its own chunk before it
+    freezes, while the streamed path catches it the same iteration.
+    """
+    st = state
+    M, N = st.P.shape[1:]
+    if not resident_fits(M, N, cfg, storage_dtype=st.P.dtype):
+        raise ValueError(
+            f"({M}, {N}) lane pool exceeds the resident budget (one "
+            f"block's shared memory, {SMEM_LIMIT} bytes); use impl='auto' "
+            f"to fall back to the streamed tier")
+    ran = (st.active & st.healthy & ~st.converged
+           & (st.iters < cfg.num_iters))
+    conv = st.converged | ~st.healthy
+    uot_resident.resident_stepped(
+        st.P, st.colsum, st.frow, st.iters, conv, st.active, st.a, st.b,
+        fi=cfg.fi, n_iters=n_iters, num_iters=cfg.num_iters, tol=cfg.tol)
+    finite = (torch.isfinite(st.frow).all(dim=-1)
+              & torch.isfinite(st.colsum).all(dim=-1))
+    healthy = st.healthy & (finite | ~ran)
+    st.converged = torch.where(st.healthy, conv, st.converged) & healthy
+    st.healthy = healthy
+    return st
 
 
 def _solve_fused_stepped_streamed(st: LaneState, n_iters: int,
@@ -484,8 +779,9 @@ def solve_fused_bucketed(problems, cfg: UOTConfig, *, storage_dtype=None,
 
     Each bucket is zero-padded to its (Mb, Nb) host-side, stacked in
     chunks of at most ``max_batch`` (rounded up to ``canonical_batch``),
-    moved to the device in one pinned copy and solved by
-    ``solve_fused_batched``; the chunk's results come back in one copy.
+    moved to the device in one pinned copy and solved by the streamed
+    batched tier — or, with ``impl='auto'`` / ``'resident'`` resolved per
+    chunk, by kernel f; the chunk's results come back in one copy.
     Returns a list of (P, colsum) numpy float32 arrays aligned with the
     input order (a bf16 coupling is upcast exactly).
     """
@@ -512,9 +808,15 @@ def solve_fused_bucketed(problems, cfg: UOTConfig, *, storage_dtype=None,
             else:
                 _BUCKETED_KEYS.add(key)
                 _BUCKETED_STATS["misses"] += 1
-            P, colsum = _solve_fused_batched_streamed(
-                to_device(A, dev).to(sdt), to_device(a, dev),
-                to_device(b, dev), cfg)
+            Ad = to_device(A, dev).to(sdt)
+            ad, bd = to_device(a, dev), to_device(b, dev)
+            if impl in ("auto", "resident") and _resolve_auto(
+                    impl, Mb, Nb, cfg, storage_dtype):
+                P, colsum, _, _ = uot_resident.resident_solve(
+                    Ad, ad, bd, fi=cfg.fi, num_iters=cfg.num_iters,
+                    tol=cfg.tol)
+            else:
+                P, colsum = _solve_fused_batched_streamed(Ad, ad, bd, cfg)
             P, colsum = _np_f32(to_host(P)), _np_f32(to_host(colsum))
             for k, i in enumerate(chunk):
                 M, N = shapes[i]

@@ -1,11 +1,16 @@
-"""Plain oracles for the batched kernels of this slice (the port of the
-batched half of ``repro.kernels.ref``). Out of place and in fp32: the
-allclose targets of the tests."""
+"""Plain oracles for the streamed kernels (the port of the dense half of
+``repro.kernels.ref``). Out of place and in fp32: the allclose targets of
+the tests."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.problem import rescale_factors
+
+
+def colsum_ref(A):
+    """Oracle for ``uot_fused.colsum``: (M, N) -> (N,) fp32."""
+    return A.float().sum(dim=0)
 
 
 def fused_iteration_ref(A, factor_col, a, *, fi: float):

@@ -38,10 +38,18 @@ PLAIN_CALLS = {"batched_colsum": 0, "batched_fused_iteration": 0,
 # Hopper (H100 SXM) facts the launch plan is built from
 NUM_SMS = 132
 SMEM_LIMIT = 232_448          # bytes of shared memory one block may use
+SM_SMEM = 233_472             # bytes of shared memory of one SM
+BLOCK_SMEM_RESERVED = 1_024   # bytes the runtime keeps per resident block
+MAX_BLOCKS_PER_SM = 4         # registers allow few more blocks of 256
 TILE_BUDGET = 64 * 1024       # staged tile per block: 2-3 blocks per SM
 MIN_ONE_PASS_ROWS = 4         # fewer staged rows than this: go two-pass
 MAX_BLOCK_M = 16
 THREADS = 256
+# kernels a and c aim at this many blocks per SM: at 4096x4096, reading
+# device memory, two (rows of 63 fp32 / 32 bf16 per block) ran at 2.24 /
+# 1.86 TB/s, four at 2.33 / 1.71 TB/s (scripts/sweep_stream_plans.py)
+COLSUM_BLOCKS_PER_SM = 2
+COLSUM_MIN_ROWS = 8
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -104,10 +112,14 @@ def plan_for(B: int, M: int, N: int, itemsize: int, *,
     """The launch plan for a (B, M, N) stack of ``itemsize``-byte storage.
 
     One-pass when ``MIN_ONE_PASS_ROWS`` rows of the tile fit the budget.
-    Blocks take whole sub-blocks, as many as keep at least two blocks per
-    SM in the grid: more rows per block mean fewer partial column sums to
-    write and reduce. Raises for rows too wide for one block's column
-    accumulator.
+    Blocks take whole sub-blocks, and the grid is one wave: as many blocks
+    as the shared memory each one asks for lets the SMs hold at once (at
+    most ``MAX_BLOCKS_PER_SM`` each), with as few rows per block as that
+    allows; a problem gets at least one block. A grid a little over one
+    wave leaves a tail of blocks running on a nearly idle card: at
+    4096x4096 fp32, 342 blocks took 0.0945 ms and 256 took 0.0735 ms
+    (``scripts/sweep_stream_plans.py``). Raises for rows too wide for one
+    block's column accumulator.
     """
     bm = pick_block_m(M, N, itemsize)
     one_pass = bm * N * itemsize <= TILE_BUDGET and bm >= min(
@@ -118,10 +130,11 @@ def plan_for(B: int, M: int, N: int, itemsize: int, *,
             f"N={N} is too wide for the batched kernels (a block's column "
             f"accumulator needs {smem} bytes of shared memory, limit "
             f"{SMEM_LIMIT}); the wide-N half-pass kernels are a later slice")
-    target = 2 * num_sms
-    k = max(1, (B * M) // (target * bm))
-    rows = min(bm * k, max(bm, ((M + bm - 1) // bm) * bm))
-    ctas = (M + rows - 1) // rows
+    per_sm = SM_SMEM // (smem + BLOCK_SMEM_RESERVED)
+    per_problem = max(1, num_sms * min(MAX_BLOCKS_PER_SM, per_sm) // B)
+    rows = -(-M // per_problem)
+    rows = -(-rows // bm) * bm
+    ctas = -(-M // rows)
     vec = 16 // itemsize if N % (16 // itemsize) == 0 else 1
     return Plan(one_pass=one_pass, block_m=bm, rows_per_cta=rows, ctas=ctas,
                 vec=vec, smem_bytes=smem)
@@ -129,14 +142,18 @@ def plan_for(B: int, M: int, N: int, itemsize: int, *,
 
 def plan_colsum(B: int, M: int, N: int, itemsize: int, *,
                 num_sms: int = NUM_SMS) -> Plan:
-    """Launch plan of kernel c: rows split so the grid holds about four
-    blocks per SM (the kernel uses no shared memory)."""
-    rows = max(8, (B * M) // (4 * num_sms))
-    rows = min(rows, max(1, M))
-    ctas = (M + rows - 1) // rows
+    """Launch plan of kernels c and a (a is c at B=1): a grid of (row
+    blocks, column tiles, problems), each column tile ``THREADS`` vectors
+    wide, with as many row blocks per problem as bring the grid to about
+    ``COLSUM_BLOCKS_PER_SM`` blocks per SM, and at least
+    ``COLSUM_MIN_ROWS`` rows per block so the partial sums stay a small
+    share of the bytes. The kernel uses no shared memory."""
     vec = 16 // itemsize if N % (16 // itemsize) == 0 else 1
-    return Plan(one_pass=True, block_m=rows, rows_per_cta=rows, ctas=ctas,
-                vec=vec, smem_bytes=0)
+    tiles = -(-(N // vec) // THREADS)
+    per_problem = max(1, -(-COLSUM_BLOCKS_PER_SM * num_sms // (tiles * B)))
+    rows = max(min(COLSUM_MIN_ROWS, M), -(-M // per_problem), 1)
+    return Plan(one_pass=True, block_m=rows, rows_per_cta=rows,
+                ctas=-(-M // rows), vec=vec, smem_bytes=0)
 
 
 # ---- argument checks ---------------------------------------------------------

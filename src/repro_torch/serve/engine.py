@@ -5,9 +5,11 @@ Clients submit independent (K, a, b) problems of any shape; ``flush()``
 groups the queue into padded-shape buckets and solves each bucket chunk
 with one batched solve on the card (``ops.solve_fused_bucketed``: kernel c
 once, kernel d — or e under ``cfg.tol`` — per iteration for the whole
-chunk). Zero-padding inside a bucket is exact, so every response equals
-its standalone solve. The flush is a barrier: for latency-sensitive
-traffic use ``UOTScheduler``.
+chunk; with ``impl='auto'`` a bucket that fits the resident budget is one
+launch of kernel f, and each flush's decisions are recorded in
+``last_dispatch`` through ``ops.dispatch_observer``). Zero-padding inside
+a bucket is exact, so every response equals its standalone solve. The
+flush is a barrier: for latency-sensitive traffic use ``UOTScheduler``.
 
 ``submit_points`` (coordinate payloads) arrives with the geometry slice;
 the LLM ``ServeEngine`` with the LLM-substrate slice.
@@ -71,6 +73,10 @@ class UOTBatchEngine:
         self._c_flushed = reg.counter("engine.flushed")
         self._queue: list[UOTRequest] = []
         self._next_rid = 0
+        # {(Mb, Nb): 'resident' | 'streamed'}: the impl='auto' routing of
+        # the last flush's buckets, as dispatch made it (empty for an
+        # explicit impl, which makes no decision)
+        self.last_dispatch: dict[tuple[int, int], str] = {}
 
     def submit(self, K, a, b) -> int:
         # payloads stay host-side numpy until flush() assembles the padded
@@ -96,11 +102,18 @@ class UOTBatchEngine:
             return {}
         self._c_flushes.inc()
         self._c_flushed.inc(len(reqs))
-        results = uot_ops.solve_fused_bucketed(
-            [(r.K, r.a, r.b) for r in reqs], self.cfg,
-            storage_dtype=self.storage_dtype, impl=self.impl,
-            max_batch=self.max_batch, m_bucket=self.m_bucket,
-            n_bucket=self.n_bucket, device=self.device)
+        decisions: dict[tuple[int, int], str] = {}
+
+        def _observe(kind, *, M, N, itemsize, num_iters):
+            decisions[(M, N)] = kind
+
+        with uot_ops.dispatch_observer(_observe):
+            results = uot_ops.solve_fused_bucketed(
+                [(r.K, r.a, r.b) for r in reqs], self.cfg,
+                storage_dtype=self.storage_dtype, impl=self.impl,
+                max_batch=self.max_batch, m_bucket=self.m_bucket,
+                n_bucket=self.n_bucket, device=self.device)
+        self.last_dispatch = decisions
         return {r.rid: P for r, (P, _) in zip(reqs, results)}
 
     @staticmethod

@@ -5,7 +5,10 @@ The port of the core of ``repro.serve.scheduler`` (serving tier 3):
 * one fixed **lane pool** per (m_bucket, n_bucket) padded-shape bucket — a
   ``kernels.ops.LaneState`` on the card advanced ``chunk_iters``
   Algorithm-1 iterations at a time by ``ops.solve_fused_stepped`` (kernel
-  e per iteration; kernel c at admission);
+  e per iteration, or with ``impl='auto'`` / ``'resident'`` kernel g per
+  chunk for pools that fit the resident budget; kernel c at admission).
+  Each chunk's ``impl='auto'`` decision is added to the registry counters
+  ``serve.dispatch.resident`` / ``serve.dispatch.streamed``;
 * between chunks, lanes whose row-factor drift passed ``cfg.tol`` (or that
   hit ``cfg.num_iters``, or went unhealthy) are **evicted** and their
   couplings returned at once;
@@ -26,8 +29,8 @@ pinned copy per pool.
 
 Not in this slice (each raises ``NotImplementedError``):
 ``predictive=True``, ``shed_policy='degrade'``, ``brownout``,
-``measurements``, ``fault_injector``, non-empty ``slos``,
-``submit_points``, and ``impl='auto'/'resident'``.
+``measurements``, ``fault_injector``, non-empty ``slos`` and
+``submit_points``.
 """
 from __future__ import annotations
 
@@ -320,6 +323,8 @@ class UOTScheduler:
         self._g_queued = reg.gauge("serve.queued")
         self._g_in_flight = reg.gauge("serve.in_flight")
         self._g_occupancy = reg.gauge("serve.occupancy")
+        self._c_dispatch = {k: reg.counter("serve.dispatch." + k)
+                            for k in ("resident", "streamed")}
         self._c_infeasible = reg.counter("serve.admission.infeasible")
         self._c_degrade = {lvl: reg.counter(f"serve.degrade.l{lvl}")
                            for lvl in (1, 2)}
@@ -447,8 +452,13 @@ class UOTScheduler:
             for bucket, pool in list(self._pools.items()):
                 if pool.requests:
                     pool.idle_steps = 0
-                    ops.solve_fused_stepped(pool.state, self.chunk_iters,
-                                            self.cfg, impl=self.impl)
+                    # the chunk's impl='auto' routing goes to the
+                    # registry's dispatch counters
+                    with ops.dispatch_counters() as counters:
+                        ops.solve_fused_stepped(pool.state, self.chunk_iters,
+                                                self.cfg, impl=self.impl)
+                    for k, v in counters.items():
+                        self._c_dispatch[k].inc(v)
                 else:
                     pool.idle_steps += 1
                     if (self.pool_idle_ttl is not None

@@ -212,11 +212,22 @@ class TestSolveFusedBatched:
         np.testing.assert_array_equal(Kt.numpy(), K0)
 
     def test_later_slices_raise(self):
-        K, a, b = stack(1, 4, 8, 2)
-        for kw in (dict(impl="auto"), dict(impl="resident")):
-            with pytest.raises(NotImplementedError, match="resident"):
-                tops.solve_fused_batched(K, a, b, TConfig(), device="cpu",
-                                         **kw)
+        """impl='auto' / 'resident' are ported (kernel f): they route
+        through the dispatch counters and match the reference. geometry=
+        is still a later slice."""
+        K, a, b = stack(2, 24, 100, 2)
+        kw = dict(reg=0.1, reg_m=1.0, num_iters=25, tol=1e-4)
+        Pj, csj = jops.solve_fused_batched(
+            jnp.asarray(K), jnp.asarray(a), jnp.asarray(b), JConfig(**kw),
+            impl="auto", interpret=True)
+        for impl, routed in (("auto", {"resident": 1, "streamed": 0}),
+                             ("resident", {"resident": 0, "streamed": 0})):
+            with tops.dispatch_counters():
+                Pt, cst = tops.solve_fused_batched(K, a, b, TConfig(**kw),
+                                                   device="cpu", impl=impl)
+                assert tops.dispatch_stats() == routed
+            close(Pt, Pj, "float32", call=False)
+            close(cst, csj, "float32", call=False)
         with pytest.raises(NotImplementedError, match="geometry"):
             tops.solve_fused_batched(None, a, b, TConfig(), device="cpu",
                                      geometry=object())

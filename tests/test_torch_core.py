@@ -222,7 +222,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
 
 
 @pytest.mark.parametrize("entry", ["scheduler", "engine", "lane_state",
-                                   "batched", "bucketed", "escalate"])
+                                   "batched", "bucketed", "escalate",
+                                   "fused", "fused_auto", "resident"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                           monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -236,6 +237,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                     b[None], cfg),
         "bucketed": lambda: tops.solve_fused_bucketed([(K, a, b)], cfg),
         "escalate": lambda: thealth.escalate_log_solve(K, a, b, cfg),
+        "fused": lambda: tops.solve_fused(K, a, b, cfg),
+        "fused_auto": lambda: tops.solve_fused(K, a, b, cfg, impl="auto"),
+        "resident": lambda: tops.solve_fused_resident(K, a, b, cfg),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

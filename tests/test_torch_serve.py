@@ -19,6 +19,7 @@ from repro.serve import UOTBatchEngine as JEngine
 from repro.serve import UOTScheduler as JScheduler
 from repro_torch.core import InvalidProblemError
 from repro_torch.core import UOTConfig as TConfig
+from repro_torch.kernels import ops as tops
 from repro_torch.serve import (QueueFullError, RequestFailure,
                                UOTBatchEngine, UOTScheduler,
                                submit_with_retry)
@@ -176,7 +177,7 @@ def test_backpressure_and_bounded_results():
 @pytest.mark.parametrize("kw", [
     dict(predictive=True), dict(shed_policy="degrade"),
     dict(measurements=object()), dict(fault_injector=object()),
-    dict(slos=[object()]), dict(impl="auto"), dict(brownout=object())])
+    dict(slos=[object()]), dict(brownout=object())])
 def test_later_slice_features_raise(kw):
     _, tc = cfgs()
     with pytest.raises(NotImplementedError):
@@ -229,3 +230,39 @@ def test_bf16_scheduler_within_reference_bars():
         assert got.dtype == np.float32
         assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
         assert abs(got.sum() - want.sum()) <= 1e-2 * want.sum()
+
+
+def test_auto_engine_and_scheduler_route_and_match_reference():
+    """impl='auto': the (32, 128) bucket fits the Hopper resident budget
+    and runs on kernels f (engine) / g (scheduler); the (160, 384) bucket
+    does not and streams. The reference's TPU budget keeps both resident,
+    and the answers, statuses and iteration counts agree all the same."""
+    reqs = trace() + [problem(150, 300, 7, peak=2.0)]
+    jc, tc = cfgs(num_iters=30)
+    je = JEngine(jc, max_batch=4, m_bucket=32, interpret=True, impl="auto")
+    te = UOTBatchEngine(tc, max_batch=4, m_bucket=32, device="cpu",
+                        impl="auto")
+    for K, a, b in reqs:
+        assert je.submit(jnp.asarray(K), a, b) == te.submit(K, a, b)
+    with tops.dispatch_counters() as routed:
+        jout, tout = je.flush(), te.flush()
+    assert routed == {"resident": 2, "streamed": 1}     # 8 small in 2 chunks
+    assert te.last_dispatch == {(32, 128): "resident",
+                                (160, 384): "streamed"}
+    for rid in jout:
+        assert rel(tout[rid], jout[rid]) <= RTOL_SOLVE
+
+    jclock, tclock = Clock(), Clock()
+    common = dict(lanes_per_pool=4, chunk_iters=5, m_bucket=32, impl="auto")
+    js = JScheduler(jc, clock=jclock, interpret=True, **common)
+    ts = UOTScheduler(tc, clock=tclock, device="cpu", **common)
+    jout = drive(js, jclock, reqs)
+    tout = drive(ts, tclock, reqs)
+    assert_same_serving(js, ts, jout, tout)
+    counters = ts.obs.registry.dump()["counters"]
+    assert counters["serve.dispatch.resident"] > 0
+    assert counters["serve.dispatch.streamed"] > 0
+    jcounters = js.obs.registry.dump()["counters"]
+    assert (counters["serve.dispatch.resident"]
+            + counters["serve.dispatch.streamed"]
+            == jcounters["serve.dispatch.resident"])

@@ -174,7 +174,16 @@ def test_admission_masks_beyond_valid_counts():
 
 
 def test_stepped_later_slices_raise():
-    _, tc = cfgs()
-    st = tops.make_lane_state(1, 4, 8, tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="resident"):
-        tops.solve_fused_stepped(st, 1, tc, impl="auto")
+    """impl='auto' is ported: an fp32 pool inside the resident budget runs
+    on kernel g, a bf16 pool stays streamed (kernel g would round it once
+    per chunk); both match the reference's own 'auto' pool."""
+    for dtype, want in (("float32", "resident"), ("bfloat16", "streamed")):
+        jc, tc = cfgs(dtype)
+        jst, tst = jax_pool(jc), port_pool(tc)
+        with tops.dispatch_counters() as routed:
+            for _ in range(4):
+                jst = jops.solve_fused_stepped(jst, 5, jc, interpret=True,
+                                               impl="auto")
+                tops.solve_fused_stepped(tst, 5, tc, impl="auto")
+        assert routed == dict({"resident": 0, "streamed": 0}, **{want: 4})
+        assert_pools_match(tst, jst, dtype)
