@@ -42,8 +42,30 @@ The quickest proof that the port starts on the card. It
    against plain solves on the card (iteration counts equal);
 9. times kernels a, b, f, g as in 5, and the scheduler's small requests on
    the resident route against the streamed route;
-10. prints a ``{"kernels": [...]}`` line for all seven kernels, the card's
-    name and power limit, and last ``{"ok": true, "device": {...}}``.
+10. holds the point-cloud kernels h, i, j, k (``batched_pc_colsum``,
+    ``batched_pc_first_iteration``, ``batched_pc_materialize``,
+    ``resident_solve_pc``) against their plain versions at ragged shapes,
+    d = 2, 3 and 9, fp32 and bf16 (j within 2 ulps per entry, masked
+    regions exactly zero, repeated launches bitwise), and the pairs that
+    must agree bit for bit inside the port: h = c, i = d and k = f over
+    j's output, and the engine and scheduler point paths against dense
+    submission of ``geometry.kernel()``;
+11. drives the third slice's path with the counters zeroed just before and
+    read just after: ``solve_fused_batched(geometry=)`` at B=8 2048x2048
+    d=3 (fp32, tol None and 1e-4; bf16), ``solve_fused(geometry=)`` at
+    4096x4096, ``solve_fused_resident(geometry=)`` and
+    ``solve_fused_batched(geometry=, impl='auto')`` at B=256 128x384 d=2,
+    a ``UOTBatchEngine(impl='auto')`` flush of 32 point requests, and
+    ``UOTScheduler`` runs of 64 point requests (fp32, bf16) and of 80 point
+    and 16 dense requests with ``impl='auto'``. Kernels h, i, j, k must
+    have launched and no plain version may have run; every result is held
+    against plain solves on the card (iteration counts equal);
+12. times h, i, j, k as in 5, and prints the end-to-end time of a B=8
+    2048x2048 ``solve_fused_batched`` from host numpy with ``geometry=``
+    and dense from the host-materialized kernel (a line, not a claim);
+13. prints a ``{"kernels": [...]}`` line for all eleven kernels, the
+    card's name and power limit, and last ``{"ok": true, "device":
+    {...}}``.
 
 Any failed check raises, and the script exits non-zero without a result:
 also when CUDA is not available or the package is not beside it.
@@ -90,7 +112,18 @@ KERNELS = {
                        "src/repro/kernels/uot_resident.py:140"),
     "resident_stepped": ("uot_resident.cu",
                          "src/repro/kernels/uot_resident.py:383"),
+    "batched_pc_colsum": ("uot_geometry.cu",
+                          "src/repro/kernels/uot_geometry.py:155"),
+    "batched_pc_first_iteration": ("uot_geometry.cu",
+                                   "src/repro/kernels/uot_geometry.py:212"),
+    "batched_pc_materialize": ("uot_geometry.cu",
+                               "src/repro/kernels/uot_geometry.py:112"),
+    "resident_solve_pc": ("uot_resident.cu",
+                          "src/repro/kernels/uot_resident.py:212"),
 }
+# the kernels of the third slice (point-cloud geometries)
+THIRD = {"batched_pc_colsum", "batched_pc_first_iteration",
+         "batched_pc_materialize", "resident_solve_pc"}
 
 
 def log(tag: str, msg: str) -> None:
@@ -696,8 +729,9 @@ def main() -> int:
     launches2 = {**ub.LAUNCHES, **uf.LAUNCHES, **ur.LAUNCHES}
     plain2 = {**ub.PLAIN_CALLS, **uf.PLAIN_CALLS, **ur.PLAIN_CALLS}
     log("launches", f"second path {launches2}; plain versions {plain2}")
-    check(set(launches2) == set(KERNELS), "kernel counters incomplete")
-    check(all(v > 0 for v in launches2.values()),
+    check(set(launches2) | THIRD == set(KERNELS),
+          "kernel counters incomplete")
+    check(all(v > 0 for k, v in launches2.items() if k not in THIRD),
           f"a kernel of the second path never launched: {launches2}")
     check(not any(plain2.values()),
           f"a plain version ran on the card path: {plain2}")
@@ -856,7 +890,487 @@ def main() -> int:
             + "/".join(f"{x[2]:.1f}" for x in v) + " ms"
             for k, v in lat.items()))
 
-    # ---- 10. result lines ------------------------------------------------------
+    # ---- 10. kernels h, i, j, k against their plain versions ------------------
+    from repro_torch.geometry import PointCloudGeometry
+    from repro_torch.geometry.pointcloud import sq_norms
+    from repro_torch.kernels import uot_geometry as ug
+
+    def coords(B, M, N, d, ragged=True):
+        """Point-cloud operands on the card: coordinates in the unit cube,
+        squared norms, valid counts (ragged after the first problem)."""
+        x = torch.rand((B, M, d), generator=gen, device=dev)
+        y = torch.rand((B, N, d), generator=gen, device=dev)
+        mv = torch.full((B,), M, dtype=torch.int32, device=dev)
+        nv = torch.full((B,), N, dtype=torch.int32, device=dev)
+        if ragged and B > 1:
+            mv[1:] = torch.randint(M // 2, M + 1, (B - 1,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            nv[1:] = torch.randint(N // 2, N + 1, (B - 1,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        return (x, sq_norms(x), y, sq_norms(y), mv, nv)
+
+    def marginals(ops_):
+        """Row and column marginals, zero past the valid counts."""
+        x, _, y, _, mv, nv = ops_
+        B, M, N = x.shape[0], x.shape[1], y.shape[1]
+        rows = torch.arange(M, device=dev)[None] < mv[:, None]
+        cols = torch.arange(N, device=dev)[None] < nv[:, None]
+        a = (torch.rand((B, M), generator=gen, device=dev) + 0.5) * rows
+        b = (torch.rand((B, N), generator=gen, device=dev) + 0.5) * cols
+        return a / a.sum(1, keepdim=True), b / b.sum(1, keepdim=True) * 1.2
+
+    def ulps(got, want):
+        """Largest distance in units in the last place between two tensors
+        of non-negative values of one floating type."""
+        it = torch.int32 if got.dtype == torch.float32 else torch.int16
+        return int((got.view(it).long() - want.view(it).long()).abs().max())
+
+    def masked_zero(P, mv, nv, what):
+        for k, (m, n) in enumerate(zip(mv.tolist(), nv.tolist())):
+            check(bool((P[k, m:] == 0).all() and (P[k, :, n:] == 0).all()),
+                  f"{what}: problem {k} not exactly zero past its valid "
+                  f"counts ({m}, {n})")
+
+    gkw = dict(reg=reg, scale=1.0)
+    fi_g = cfg_tol.fi
+    for (B, M, N, d) in ((8, 2048, 2048, 3), (3, 1000, 1500, 2),
+                         (4, 128, 384, 9)):
+        ops_ = coords(B, M, N, d)
+        a, _ = marginals(ops_)
+        fcol = torch.rand((B, N), generator=gen, device=dev) + 0.5
+        for dt in (f32, b16):
+            name = f"{B}x{M}x{N} d={d} {str(dt)[6:]}"
+            K = ug.batched_pc_materialize(*ops_, out_dtype=dt, **gkw)
+            Kp = ug.batched_pc_materialize_plain(*ops_, out_dtype=dt, **gkw)
+            u_j = ulps(K, Kp)
+            check(u_j <= (2 if dt == f32 else 1),
+                  f"batched_pc_materialize {name}: {u_j} ulps from plain")
+            same_j = float((K == Kp).float().mean())
+            masked_zero(K, ops_[4], ops_[5], f"batched_pc_materialize {name}")
+            e_j = float((K.float() - Kp.float()).abs().max())
+            cs = ug.batched_pc_colsum(*ops_, storage_dtype=dt, **gkw)
+            e_h = within(cs, ug.batched_pc_colsum_plain(
+                *ops_, storage_dtype=dt, **gkw), f32, f"pc colsum {name}")
+            A1, c1, f1 = ug.batched_pc_first_iteration(
+                fcol, a, *ops_, fi=fi_g, out_dtype=dt, **gkw)
+            A2, c2, f2 = ug.batched_pc_first_iteration_plain(
+                fcol, a, *ops_, fi=fi_g, out_dtype=dt, **gkw)
+            e_i = max(within(A1, A2, dt, f"pc first iteration {name}"),
+                      within(c1, c2, f32, f"pc first iteration colsum {name}"),
+                      within(f1, f2, f32, f"pc first iteration frow {name}"))
+            masked_zero(A1, ops_[4], ops_[5], f"pc first iteration {name}")
+            A3, c3, f3 = ug.batched_pc_first_iteration(
+                fcol, a, *ops_, fi=fi_g, out_dtype=dt, **gkw)
+            check(torch.equal(ug.batched_pc_materialize(
+                *ops_, out_dtype=dt, **gkw), K) and torch.equal(
+                ug.batched_pc_colsum(*ops_, storage_dtype=dt, **gkw), cs)
+                and torch.equal(A3, A1) and torch.equal(c3, c1)
+                and torch.equal(f3, f1), f"h/i/j repeat not bitwise {name}")
+            # the dense twins over j's output: h is c, i is d, bit for bit
+            Kd = K.clone()
+            _, cd = ub.batched_fused_iteration(Kd, fcol, a, fi=fi_g)
+            check(torch.equal(ub.batched_colsum(K), cs),
+                  f"h differs from c over j's output at {name}")
+            check(torch.equal(Kd, A1) and torch.equal(cd, c1),
+                  f"i differs from d over j's output at {name}")
+            log("kernels", f"h, i, j {name}: j within {u_j} ulps of plain "
+                f"({100 * same_j:.2f}% of entries bitwise), max abs err "
+                f"h {e_h:.3g} i {e_i:.3g} j {e_j:.3g}; masked regions exact;"
+                f" h = c(j) and i = d(j) bitwise; repeat=bitwise")
+            if (B, M, N, d) == (8, 2048, 2048, 3) and dt == f32:
+                errs.update(batched_pc_colsum=e_h,
+                            batched_pc_first_iteration=e_i,
+                            batched_pc_materialize=e_j)
+            del K, Kp, A1, A2, A3, Kd
+    for (B, M, N, d) in ((256, 128, 384, 2), (8, 100, 300, 3)):
+        ops_ = coords(B, M, N, d)
+        a, b = marginals(ops_)
+        for dt in (f32, b16):
+            for tol in (None, 1e-4):
+                kw = dict(fi=fi_g, num_iters=100 if tol else 50, tol=tol)
+                what = f"resident_solve_pc B={B} {M}x{N} d={d} " \
+                       f"{str(dt)[6:]} tol={tol}"
+                P, cs, it, err = ur.resident_solve_pc(
+                    *ops_[:4], a, b, *ops_[4:], out_dtype=dt, **gkw, **kw)
+                Pp, csp, itp, errp = ur.resident_solve_pc_plain(
+                    *ops_[:4], a, b, *ops_[4:], out_dtype=dt, **gkw, **kw)
+                Kp = ug.batched_pc_materialize_plain(*ops_, out_dtype=dt,
+                                                     **gkw)
+                same = ties_only(it, itp, Kp, a, b, fi_g, tol, what)
+                r_k = each(P[same], Pp[same],
+                           EACH_RTOL if dt == f32 else BF16_ULP, what)
+                e_k = within(P[same], Pp[same], dt, what, call=False)
+                each(cs[same], csp[same], EACH_RTOL, what + " colsum")
+                masked_zero(P, ops_[4], ops_[5], what)
+                K = ug.batched_pc_materialize(*ops_, out_dtype=dt, **gkw)
+                f_out = ur.resident_solve(K, a, b, **kw)
+                k_again = ur.resident_solve_pc(*ops_[:4], a, b, *ops_[4:],
+                                               out_dtype=dt, **gkw, **kw)
+                for other, label in ((f_out, "f over j's output"),
+                                     (k_again, "a repeat launch")):
+                    check(all(torch.equal(u, v) for u, v in
+                              zip(other, (P, cs, it, err))),
+                          f"{what}: differs from {label}")
+                log("kernels", f"{what}: max abs err {e_k:.3g}, per entry "
+                    f"max rel err {r_k:.3g}, iterations {int(it.min())}-"
+                    f"{int(it.max())}, equal to plain in "
+                    f"{int(same.sum())}/{B} lanes (the rest ties at tol); "
+                    f"k = f(j) bitwise; repeat=bitwise")
+                if (B, dt, tol) == (256, f32, 1e-4):
+                    errs["resident_solve_pc"] = e_k
+                del P, Pp, Kp, K, f_out, k_again
+
+    def point_problems(n, mlo, mhi, nlo, nhi, d):
+        """n point requests as host numpy: (x, y, a, b)."""
+        ms = torch.randint(mlo, mhi + 1, (n,), generator=gen, device=dev)
+        ns = torch.randint(nlo, nhi + 1, (n,), generator=gen, device=dev)
+        out = []
+        for M, N in zip(ms.tolist(), ns.tolist()):
+            ops_ = coords(1, M, N, d)
+            a, b = marginals(ops_)
+            out.append((ops_[0][0].cpu().numpy(), ops_[2][0].cpu().numpy(),
+                        a[0].cpu().numpy(), b[0].cpu().numpy()))
+        return out
+
+    def gibbs_host(x, y):
+        """``PointCloudGeometry.kernel`` of one request, as host numpy."""
+        return PointCloudGeometry.from_points(x, y).kernel(reg).cpu().numpy()
+
+    # the point paths of the engine and the scheduler against dense
+    # submission of the geometry's kernel, on the card: bit for bit
+    pair_reqs = (point_problems(8, 64, 128, 128, 384, 2)
+                 + point_problems(4, 300, 500, 300, 500, 2))
+    for dt in (f32, b16):
+        cfg_p = UOTConfig(reg=reg, reg_m=1.0, num_iters=60, tol=1e-4,
+                          dtype=dt)
+        for impl in (None, "auto"):
+            ep = UOTBatchEngine(cfg_p, m_bucket=64, n_bucket=128, impl=impl)
+            ed = UOTBatchEngine(cfg_p, m_bucket=64, n_bucket=128, impl=impl)
+            pairs = [(ep.submit_points(x, y, a, b),
+                      ed.submit(gibbs_host(x, y), a, b))
+                     for x, y, a, b in pair_reqs]
+            rp, rd = ep.flush(), ed.flush()
+            check(all(np.array_equal(rp[p], rd[q]) for p, q in pairs),
+                  f"engine points differ from dense ({dt}, impl={impl})")
+        sp = UOTScheduler(cfg_p, lanes_per_pool=4, chunk_iters=4,
+                          m_bucket=64, n_bucket=128)
+        sd = UOTScheduler(cfg_p, lanes_per_pool=4, chunk_iters=4,
+                          m_bucket=64, n_bucket=128)
+        pairs = [(sp.submit_points(x, y, a, b),
+                  sd.submit(gibbs_host(x, y), a, b))
+                 for x, y, a, b in pair_reqs]
+        op_, od = sp.run(), sd.run()
+        itp = {r.rid: r.iters for r in sp.request_log}
+        itd = {r.rid: r.iters for r in sd.request_log}
+        check(all(np.array_equal(op_[p], od[q]) and itp[p] == itd[q]
+                  for p, q in pairs),
+              f"scheduler points differ from dense ({dt})")
+        log("serve", f"{len(pair_reqs)} point requests (64-500 per side, "
+            f"d=2) {str(dt)[6:]}: engine (impl None and 'auto') and "
+            f"scheduler point paths equal dense submission of kernel() bit "
+            f"for bit, scheduler iteration counts equal")
+    torch.cuda.synchronize()
+
+    # ---- 11. the third slice's path, counted ----------------------------------
+    def batched_geometry(B, M, N, d):
+        ops_ = coords(B, M, N, d, ragged=False)
+        a, b = marginals(ops_)
+        return PointCloudGeometry(x=ops_[0], y=ops_[2], xn=ops_[1],
+                                  yn=ops_[3]), a, b
+
+    geo8, a8, b8 = batched_geometry(8, 2048, 2048, 3)
+    geo4k, a4k, b4k = batched_geometry(1, 4096, 4096, 3)
+    geo256, a256g, b256g = batched_geometry(256, 128, 384, 2)
+    eng_reqs = (point_problems(16, 64, 128, 128, 384, 2)
+                + point_problems(16, 1500, 2048, 1500, 2048, 3))
+    eng_reqs = [r for pair in zip(eng_reqs[:16], eng_reqs[16:])
+                for r in pair]
+    sched_pts = {dt: point_problems(64, 1500, 2048, 1500, 2048, 3)
+                 for dt in (f32, b16)}
+    small_pts = point_problems(64, 64, 128, 128, 384, 2)
+    large_pts = point_problems(16, 1500, 2048, 1500, 2048, 3)
+    dense_small = host_problems_mn(16, 64, 128, 128, 384)
+    cfg_tol16 = UOTConfig(reg=reg, reg_m=1.0, num_iters=100, tol=1e-4,
+                          dtype=b16)
+    torch.cuda.synchronize()
+
+    def serve_points(cfg, reqs, *, waves=8, impl=None, m_bucket=512,
+                     n_bucket=512, dense=()):
+        """Point requests (and dense ones, interleaved) in waves between
+        scheduler rounds; returns (scheduler, results, rids, wall s)."""
+        sched = UOTScheduler(cfg, lanes_per_pool=8, chunk_iters=4,
+                             m_bucket=m_bucket, n_bucket=n_bucket, impl=impl)
+        items = [("points", r) for r in reqs]
+        for i, r in enumerate(dense):
+            items.insert(2 * i + 1, ("dense", r))
+        per = -(-len(items) // waves)
+        out, rids = {}, []
+        t0 = time.perf_counter()
+        for w in range(waves):
+            for kind, r in items[w * per:(w + 1) * per]:
+                rids.append((kind, r, sched.submit_points(*r)
+                             if kind == "points" else sched.submit(*r)))
+            out.update(sched.step())
+        out.update(sched.run())
+        return sched, out, rids, time.perf_counter() - t0
+
+    for mod in (ub, uf, ur, ug):
+        mod.reset_counts()
+    ops.reset_dispatch_stats()
+    path3 = {}
+    t0 = time.perf_counter()
+    path3["batched fp32"] = ops.solve_fused_batched(None, a8, b8, cfg_fixed,
+                                                    geometry=geo8)
+    path3["batched fp32 tol"] = ops.solve_fused_batched(
+        None, a8, b8, cfg_tol, geometry=geo8)
+    path3["batched bf16 tol"] = ops.solve_fused_batched(
+        None, a8, b8, cfg_tol16, geometry=geo8)
+    path3["fused 4096"] = ops.solve_fused(None, a4k[0], b4k[0], cfg_fixed,
+                                          geometry=geo4k)
+    path3["resident"] = ops.solve_fused_resident(None, a256g, b256g, cfg_tol,
+                                                 geometry=geo256)
+    path3["batched auto"] = ops.solve_fused_batched(
+        None, a256g, b256g, cfg_tol, geometry=geo256, impl="auto")
+    torch.cuda.synchronize()
+    t_solves3 = time.perf_counter() - t0
+    dispatch3 = ops.dispatch_stats()
+    engine3 = UOTBatchEngine(cfg_tol, m_bucket=64, n_bucket=128, impl="auto")
+    erids = [engine3.submit_points(*r) for r in eng_reqs]
+    t0 = time.perf_counter()
+    flushed3 = engine3.flush()
+    t_flush3 = time.perf_counter() - t0
+    served3 = {dt: serve_points(UOTConfig(reg=reg, reg_m=1.0, num_iters=100,
+                                          tol=1e-4, dtype=dt), reqs)
+               for dt, reqs in sched_pts.items()}
+    mixed3 = [r for pair in zip(small_pts[:16], large_pts) for r in pair] \
+        + small_pts[16:]
+    auto3 = serve_points(cfg_tol, mixed3, waves=4, impl="auto", m_bucket=64,
+                         n_bucket=128, dense=dense_small)
+    torch.cuda.synchronize()
+    launches3 = {**ub.LAUNCHES, **uf.LAUNCHES, **ur.LAUNCHES, **ug.LAUNCHES}
+    plain3 = {**ub.PLAIN_CALLS, **uf.PLAIN_CALLS, **ur.PLAIN_CALLS,
+              **ug.PLAIN_CALLS}
+    log("launches", f"third path {launches3}; plain versions {plain3}")
+    check(set(launches3) == set(KERNELS), "kernel counters incomplete")
+    check(all(launches3[k] > 0 for k in THIRD),
+          f"a kernel of the third path never launched: {launches3}")
+    check(not any(plain3.values()),
+          f"a plain version ran on the card path: {plain3}")
+    check(dispatch3 == {"resident": 1, "streamed": 0},
+          f"solve_fused_batched(geometry=, impl='auto') routing {dispatch3}")
+    counters3 = auto3[0].obs.registry.dump()["counters"]
+    routed3 = {k: counters3.get(f"serve.dispatch.{k}", 0)
+               for k in ("resident", "streamed")}
+    check(routed3["resident"] > 0 and routed3["streamed"] > 0,
+          f"point scheduler impl='auto' did not use both tiers: {routed3}")
+
+    # ---- results of the third path against plain solves on the card ----------
+    def plain_kernel(g):
+        """The geometry's kernel by the plain version (fp32)."""
+        o = g.operands(dev)
+        return ug.batched_pc_materialize_plain(*o, reg=reg,
+                                               scale=g.scale)
+
+    for name, cfg in (("batched fp32", cfg_fixed),
+                      ("batched fp32 tol", cfg_tol),
+                      ("batched bf16 tol", cfg_tol16)):
+        P, cs = path3[name]
+        Pp, st = sinkhorn_uot_fused_batched(plain_kernel(geo8), a8, b8,
+                                            UOTConfig(reg=reg, reg_m=1.0,
+                                                      num_iters=cfg.num_iters,
+                                                      tol=cfg.tol))
+        check(bool(torch.isfinite(P).all()) and P.shape == (8, 2048, 2048)
+              and P.dtype == cfg.dtype, f"geometry {name}: output")
+        within(P, Pp, cfg.dtype, f"solve_fused_batched(geometry=) {name}",
+               call=False)
+        log("solve_fused_batched", f"geometry= B=8 2048x2048 d=3 {name}: "
+            f"rel err vs plain {rel(P, Pp):.3g}, plain iters "
+            f"{st['iters'].tolist()}")
+        del Pp
+    P, cs = path3["fused 4096"]
+    Pp, st = sinkhorn_uot_fused(plain_kernel(geo4k)[0], a4k[0], b4k[0],
+                                cfg_fixed)
+    within(P, Pp, f32, "solve_fused(geometry=) 4096x4096", call=False)
+    log("solve_fused", f"geometry= 4096x4096 d=3 fp32: rel err vs plain "
+        f"{rel(P, Pp):.3g}, per entry {each(P, Pp, EACH_RTOL, 'fused 4096'):.3g}")
+    del Pp
+    P, cs, it, err = path3["resident"]
+    Kp = plain_kernel(geo256)
+    _, _, itp, _ = ur.resident_solve_plain(Kp.clone(), a256g, b256g,
+                                           fi=cfg_tol.fi, num_iters=100,
+                                           tol=1e-4)
+    same = ties_only(it, itp, Kp, a256g, b256g, cfg_tol.fi, 1e-4,
+                     "solve_fused_resident(geometry=)")
+    Pp, st = sinkhorn_uot_fused_batched(Kp, a256g, b256g, cfg_tol)
+    within(P, Pp, f32, "solve_fused_resident(geometry=)", call=False)
+    check(torch.equal(path3["batched auto"][0], P),
+          "impl='auto' geometry solve differs from solve_fused_resident")
+    log("solve_fused_resident", f"geometry= B=256 128x384 d=2: rel err vs "
+        f"plain {rel(P, Pp):.3g}, iterations equal in {int(same.sum())}/"
+        f"{len(same)} lanes (the rest ties at tol); the six solves took "
+        f"{t_solves3 * 1e3:.1f} ms")
+
+    def held(out, rid, x, y, a, b, dt, iters, what):
+        """One served point request against a plain solve on the card;
+        returns (rel err, whether the iteration counts are equal). Its
+        kernel is j's plain version on the card: no kernel of this slice
+        makes the reference."""
+        K = plain_kernel(PointCloudGeometry.from_points(x, y))[0]
+        Pp, st = plain_solve(K, a, b, cfg_tol)
+        P = torch.as_tensor(out[rid], device=dev)
+        within(P, Pp, dt, what, call=False)
+        if iters is not None and iters != st["iters"]:
+            k = min(iters, st["iters"])
+            _, st_k = plain_solve(K, a, b, UOTConfig(reg=reg, reg_m=1.0,
+                                                     num_iters=k))
+            check(abs(iters - st["iters"]) == 1
+                  and abs(st_k["err"] - cfg_tol.tol) <= DRIFT_ATOL,
+                  f"{what}: {iters} iterations vs plain {st['iters']}")
+        return rel(P, Pp), iters is None or iters == st["iters"]
+
+    check(sorted(flushed3) == erids, "point flush lost requests")
+    worst = max(held(flushed3, rid, *r, f32, None, f"engine points rid {rid}")[0]
+                for rid, r in zip(erids, eng_reqs))
+    log("engine", f"UOTBatchEngine(impl='auto') flush of {len(erids)} point "
+        f"requests (16 of M 64-128 x N 128-384 d=2, 16 of 1500-2048 d=3) in "
+        f"{t_flush3 * 1e3:.1f} ms, worst rel err vs plain {worst:.3g}, "
+        f"dispatch {engine3.last_dispatch}")
+    for label, (sched, out, rids, wall) in (
+            [(f"{str(dt)[6:]}", v) for dt, v in served3.items()]
+            + [("auto mixed", auto3)]):
+        dt = sched.cfg.dtype
+        statuses = {}
+        for r in sched.request_log:
+            statuses[r.status] = statuses.get(r.status, 0) + 1
+        check(statuses == {"ok": len(rids)}, f"statuses {statuses}")
+        iters = {r.rid: r.iters for r in sched.request_log}
+        worst, equal = 0.0, 0
+        for kind, r, rid in rids:
+            if kind == "dense":
+                K, a, b = r
+                Pp, st = plain_solve(K, a, b, cfg_tol)
+                within(torch.as_tensor(out[rid], device=dev), Pp, dt,
+                       f"scheduler {label} dense rid {rid}", call=False)
+                equal += iters[rid] == st["iters"]
+                continue
+            e, same_it = held(out, rid, *r, dt,
+                              iters[rid] if dt == f32 else None,
+                              f"scheduler {label} rid {rid}")
+            worst = max(worst, e)
+            equal += same_it
+        lat = np.array([r.latency for r in sched.request_log])
+        phases = ", ".join(
+            f"{ph} {sched.obs.registry.histogram(f'profile.phase.serve.{ph}').sum * 1e3:.1f} ms"
+            for ph in ("evict", "admit", "chunk"))
+        log("serve", f"UOTScheduler {label} point requests: {len(rids)} in "
+            f"{wall * 1e3:.1f} ms = {len(rids) / wall:.1f} req/s, latency "
+            f"p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 "
+            f"{np.percentile(lat, 99) * 1e3:.1f} ms, statuses {statuses}, "
+            f"host phases {phases}, worst rel err vs plain {worst:.3g}"
+            + (f", iteration counts equal {equal}/{len(rids)} (the rest "
+               f"ties at tol)" if dt == f32 else "")
+            + (f", dispatch {routed3}" if label == "auto mixed" else ""))
+
+    # ---- 12. times of kernels h, i, j, k; what the geometry saves end to end --
+    def per_entry_ops(d):
+        # the tile: 2d - 1 for the dot, 4 for the norms' sum, the doubling,
+        # the difference and the division by reg, about 7 for expf
+        return 2 * d + 10
+
+    B, M, N, d = 8, 2048, 2048, 3
+    mn = B * M * N
+    coord_bytes = B * (M + N) * (d + 1) * 4 + 8 * B
+    fcol8 = torch.ones((B, N), device=dev)
+    aa8 = torch.full((B, M), 1.0 / M, device=dev)
+    sets_pc = cold(lambda: coords(B, M, N, d, ragged=False), coord_bytes)
+    for dt in (f32, b16):
+        s = torch.empty((), dtype=dt).element_size()
+        pc, pd = ub.plan_colsum(B, M, N, s), ub.plan_for(B, M, N, s)
+        table = {
+            "batched_pc_colsum": dict(
+                fn=lambda *o: ug.batched_pc_colsum(*o, storage_dtype=dt,
+                                                   **gkw),
+                plain=lambda *o: ug.batched_pc_colsum_plain(
+                    *o, storage_dtype=dt, **gkw),
+                library=None, bytes=coord_bytes + B * N * 4,
+                flops=mn * (per_entry_ops(d) + 1),
+                variant=f"d={d}, c's plan, {B * pc.ctas} row blocks"),
+            "batched_pc_first_iteration": dict(
+                fn=lambda *o: ug.batched_pc_first_iteration(
+                    fcol8, aa8, *o, fi=0.95, out_dtype=dt, **gkw),
+                plain=lambda *o: ug.batched_pc_first_iteration_plain(
+                    fcol8, aa8, *o, fi=0.95, out_dtype=dt, **gkw),
+                library=None,
+                bytes=mn * s + coord_bytes + 2 * B * N * 4 + 2 * B * M * 4,
+                flops=mn * (per_entry_ops(d) + 5),
+                variant=f"d={d}, d's plan, {pd.variant}, {B * pd.ctas} "
+                        f"blocks"),
+            "batched_pc_materialize": dict(
+                fn=lambda *o: ug.batched_pc_materialize(*o, out_dtype=dt,
+                                                        **gkw),
+                plain=lambda *o: ug.batched_pc_materialize_plain(
+                    *o, out_dtype=dt, **gkw),
+                library=None, bytes=mn * s + coord_bytes,
+                flops=mn * per_entry_ops(d), variant=f"d={d}"),
+        }
+        for name, t in table.items():
+            rows.append(timed_row(name, dict(t, shape=[B, M, N]), dt,
+                                  sets_pc))
+    del sets_pc
+    Bk, Mk, Nk, dk, Tk = 256, 128, 384, 2, 50
+    kmn = Bk * Mk * Nk
+    kcoord = Bk * (Mk + Nk) * (dk + 1) * 4 + 8 * Bk
+    ak = torch.full((Bk, Mk), 1.0 / Mk, device=dev)
+    bk = torch.full((Bk, Nk), 1.2 / Nk, device=dev)
+    sets_k = cold(lambda: coords(Bk, Mk, Nk, dk, ragged=False), kcoord)
+    for dt in (f32, b16):
+        s = torch.empty((), dtype=dt).element_size()
+        t = dict(
+            fn=lambda x, xn, y, yn, mv, nv: ur.resident_solve_pc(
+                x, xn, y, yn, ak, bk, mv, nv, fi=cfg_tol.fi, num_iters=Tk,
+                out_dtype=dt, **gkw),
+            plain=lambda x, xn, y, yn, mv, nv: ur.resident_solve_pc_plain(
+                x, xn, y, yn, ak, bk, mv, nv, fi=cfg_tol.fi, num_iters=Tk,
+                out_dtype=dt, **gkw),
+            library=None,
+            bytes=kmn * s + kcoord + Bk * (Mk + 2 * Nk) * 4 + Bk * 8,
+            flops=(Bk * Tk * res_ops + kmn * per_entry_ops(dk) + kmn),
+            shape=[Bk, Mk, Nk], variant=f"d={dk}, {Tk} iterations")
+        rows.append(timed_row("resident_solve_pc", t, dt, sets_k, reps=10,
+                              plain_reps=3))
+    del sets_k
+
+    # end to end, from host numpy: coordinates and geometry= against the
+    # host-materialized kernel shipped dense (a line, not a claim)
+    ops_h = coords(B, M, N, d, ragged=False)
+    xh, yh = ops_h[0].cpu().numpy(), ops_h[2].cpu().numpy()
+    ah, bh = (t.cpu().numpy() for t in marginals(ops_h))
+    Kh = PointCloudGeometry.from_points(xh, yh).kernel(reg).cpu().numpy()
+
+    def e2e(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "geometry":
+            g = PointCloudGeometry.from_points(xh, yh)
+            P, _ = ops.solve_fused_batched(None, ah, bh, cfg_fixed,
+                                           geometry=g)
+        else:
+            P, _ = ops.solve_fused_batched(Kh, ah, bh, cfg_fixed)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    e2e("geometry"), e2e("dense")                    # warm up
+    order = ("geometry", "dense", "dense", "geometry")
+    e2e_ms = [(k, e2e(k)) for k in order]
+    log("e2e", f"solve_fused_batched B=8 2048x2048 d=3 fp32, "
+        f"{cfg_fixed.num_iters} iterations, from host numpy (host clock, "
+        f"order {', '.join(order)}): "
+        + "; ".join(f"{k} {ms:.2f} ms" for k, ms in e2e_ms)
+        + f" — the request ships {xh.nbytes + yh.nbytes} bytes of "
+        f"coordinates with geometry=, {Kh.nbytes} bytes of kernel dense")
+    del Kh
+
+    # ---- 13. result lines ------------------------------------------------------
     second = {"colsum", "fused_iteration", "resident_solve",
               "resident_stepped"}
     kernels = []
@@ -868,7 +1382,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": replaces,
-            "launches": (launches2 if name in second else launches)[name],
+            "launches": (launches3 if name in THIRD else launches2
+                         if name in second else launches)[name],
             "max_abs_err": errs[name], "ms": r32["ms"],
             "plain_ms": r32["plain_ms"], "bound_ms": r32["bound_ms"],
             "bound_by": r32["bound_by"], "library_ms": r32["library_ms"],
@@ -877,7 +1392,8 @@ def main() -> int:
             "bf16_ms": r16["ms"], "bf16_bound_ms": r16["bound_ms"],
             "bf16_plain_ms": r16["plain_ms"],
             "bf16_library_ms": r16["library_ms"],
-            "main_path": "second" if name in second else "first"})
+            "main_path": ("third" if name in THIRD else "second"
+                          if name in second else "first")})
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,10 @@
-"""Carry configs and lane pools across from the JAX reference, as numpy.
+"""Carry configs, cost geometries and lane pools across from the JAX
+reference, as numpy.
 
 No JAX here: the reference side hands over plain fields and numpy arrays
-(``np.asarray`` of each ``LaneState`` field), and the port hands numpy
-back, so a pool stepped by one package can be continued by the other.
+(``np.asarray`` of each ``LaneState`` field, or a geometry's dataclass
+fields), and the port hands numpy back, so a pool stepped by one package
+can be continued by the other, and both packages solve the same geometry.
 
 The two packages shape a pool differently: the reference pads to its TPU
 tiling (rows to a block multiple, columns to 128), the port holds the
@@ -17,6 +19,8 @@ import torch
 
 from repro_torch.core.problem import UOTConfig
 from repro_torch.device import resolve_device
+from repro_torch.geometry import (DenseGeometry, Geometry, GridGeometry,
+                                  PointCloudGeometry)
 from repro_torch.kernels.ops import LaneState
 
 FIELDS = ("P", "colsum", "a", "b", "frow", "iters", "converged", "active",
@@ -110,3 +114,42 @@ def lane_state_to_numpy(state: LaneState, *, M: int | None = None,
            for k in ("iters", "converged", "active", "m_valid", "n_valid",
                      "healthy")},
     }
+
+
+def geometry_from_numpy(fields: dict, device=None) -> Geometry:
+    """A port geometry on ``device`` (default the card) from a reference
+    geometry's dataclass fields, as numpy or anything ``np.asarray``
+    takes: ``x, y, xn, yn`` (+ ``m_valid``, ``n_valid``, ``scale``) make a
+    ``PointCloudGeometry`` — its squared norms carried over, not
+    recomputed — ``factors`` a ``GridGeometry``, ``C`` a
+    ``DenseGeometry``."""
+    dev = resolve_device(device)
+    f32 = (lambda v: torch.tensor(np.asarray(v, np.float32), device=dev))
+    if "x" in fields:
+        count = (lambda v: None if v is None else torch.tensor(
+            np.asarray(v, np.int32), device=dev))
+        return PointCloudGeometry(
+            x=f32(fields["x"]), y=f32(fields["y"]), xn=f32(fields["xn"]),
+            yn=f32(fields["yn"]), m_valid=count(fields.get("m_valid")),
+            n_valid=count(fields.get("n_valid")),
+            scale=float(fields.get("scale", 1.0)))
+    if "factors" in fields:
+        return GridGeometry(tuple(f32(C) for C in fields["factors"]))
+    if "C" in fields:
+        return DenseGeometry(f32(fields["C"]))
+    raise ValueError(f"not a geometry's fields: {sorted(fields)}")
+
+
+def geometry_to_numpy(g: Geometry) -> dict:
+    """A port geometry's fields as numpy (the inverse of
+    ``geometry_from_numpy``)."""
+    host = (lambda t: None if t is None else t.detach().cpu().numpy())
+    if isinstance(g, PointCloudGeometry):
+        return {"x": host(g.x), "y": host(g.y), "xn": host(g.xn),
+                "yn": host(g.yn), "m_valid": host(g.m_valid),
+                "n_valid": host(g.n_valid), "scale": g.scale}
+    if isinstance(g, GridGeometry):
+        return {"factors": tuple(host(C) for C in g.factors)}
+    if isinstance(g, DenseGeometry):
+        return {"C": host(g.C)}
+    raise TypeError(f"not a port geometry: {type(g).__name__}")

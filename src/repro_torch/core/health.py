@@ -126,7 +126,8 @@ def escalate_log_solve(K, a, b, cfg: UOTConfig, *, factor: int = 2,
                        num_iters: int | None = None, device=None):
     """Re-solve a quarantined request on ``sinkhorn_uot_log``.
 
-    ``K`` is the request's stored Gibbs matrix; the log solve runs from
+    ``K`` is the request's stored Gibbs matrix (numpy, or a tensor on any
+    device); the log solve runs from
     ``C = -reg * log(K)`` on ``device`` (default the card). Entries with
     ``K <= 0`` map to an effectively infinite cost; non-finite entries stay
     NaN so a poisoned payload comes back not-ok.
@@ -136,7 +137,8 @@ def escalate_log_solve(K, a, b, cfg: UOTConfig, *, factor: int = 2,
     """
     dev = resolve_device(device)
     ecfg = escalation_config(cfg, factor=factor, num_iters=num_iters)
-    K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    K = (K.to(dev, torch.float32) if isinstance(K, torch.Tensor)
+         else torch.as_tensor(np.asarray(K, np.float32), device=dev))
     tiny = float(torch.finfo(torch.float32).tiny)
     C = -ecfg.reg * torch.log(torch.clamp(K, min=tiny))
     C = torch.where(torch.isfinite(K), C, torch.full_like(C, float("nan")))

@@ -12,8 +12,8 @@ solvers iterate directly on the coupling:
     A <- A * ((CPD / colsum(A)) ** fi)[None, :]       (column rescale)
     A <- A * ((RPD / rowsum(A)) ** fi)[:, None]       (row rescale)
 
-Only a dense ``C`` is supported here; cost geometries (point clouds,
-grids) arrive with the geometry slice of the port.
+The ground cost comes from a dense ``C`` or from a cost geometry
+(``repro_torch.geometry``: point clouds, grids).
 """
 from __future__ import annotations
 
@@ -63,11 +63,21 @@ def gibbs_kernel(C: torch.Tensor, reg: float,
 
 @dataclasses.dataclass(frozen=True)
 class UOTProblem:
-    """A UOT instance with a dense cost: the marginals plus ``C``."""
+    """A UOT instance: the marginals plus where their ground cost comes
+    from, an explicit dense ``C`` or a ``repro_torch.geometry.Geometry``
+    (exactly one of the two). ``initial_coupling`` materializes
+    ``K = exp(-C / reg)`` for the matrix-scaling solvers; the kernel
+    stack (``ops.solve_fused*(geometry=...)``) computes a point cloud's
+    Gibbs tiles on the card instead."""
 
     a: torch.Tensor
     b: torch.Tensor
-    C: torch.Tensor
+    geometry: object | None = None     # repro_torch.geometry.Geometry
+    C: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if (self.geometry is None) == (self.C is None):
+            raise ValueError("UOTProblem needs exactly one of geometry / C")
 
     @classmethod
     def from_cost(cls, C, a, b) -> "UOTProblem":
@@ -75,28 +85,51 @@ class UOTProblem:
                    C=torch.as_tensor(C))
 
     @classmethod
-    def from_points(cls, *args, **kwargs) -> "UOTProblem":
-        raise NotImplementedError(
-            "point-cloud problems arrive with the cost-geometry slice of the "
-            "port (ROADMAP Open items 1, item 6)")
+    def from_points(cls, x, y, a, b, *, scale: float = 1.0,
+                    device=None) -> "UOTProblem":
+        """A point-cloud problem, ``C = ||x - y||^2 / scale``, with its
+        coordinates and marginals on ``device`` (default the card)."""
+        from repro_torch.device import resolve_device
+        from repro_torch.geometry import PointCloudGeometry
+        dev = resolve_device(device)
+        return cls(a=torch.as_tensor(a, device=dev),
+                   b=torch.as_tensor(b, device=dev),
+                   geometry=PointCloudGeometry.from_points(
+                       x, y, scale=scale, device=dev))
 
     @classmethod
-    def from_grid(cls, *args, **kwargs) -> "UOTProblem":
-        raise NotImplementedError(
-            "grid problems arrive with the cost-geometry slice of the port "
-            "(ROADMAP Open items 1, item 6)")
+    def from_grid(cls, factors, a, b, *, device=None) -> "UOTProblem":
+        """A separable grid problem from its per-axis cost factors, on
+        ``device`` (default the card)."""
+        from repro_torch.device import resolve_device
+        from repro_torch.geometry import GridGeometry
+        dev = resolve_device(device)
+        return cls(a=torch.as_tensor(a, device=dev),
+                   b=torch.as_tensor(b, device=dev),
+                   geometry=GridGeometry(tuple(
+                       torch.as_tensor(C, device=dev) for C in factors)))
 
     @property
     def shape(self) -> tuple[int, int]:
+        if self.geometry is not None:
+            return self.geometry.shape
         return tuple(self.C.shape[-2:])
 
+    def geom(self):
+        """The problem's cost source as a ``Geometry`` (a dense C
+        wrapped)."""
+        if self.geometry is not None:
+            return self.geometry
+        from repro_torch.geometry import DenseGeometry
+        return DenseGeometry(self.C)
+
     def cost_matrix(self) -> torch.Tensor:
-        return self.C
+        return self.C if self.C is not None else self.geometry.cost()
 
     def initial_coupling(self, reg: float,
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Materialized ``K = exp(-C / reg)`` for matrix-scaling solvers."""
-        return gibbs_kernel(self.C, reg, dtype)
+        return self.geom().kernel(reg).to(dtype)
 
 
 def uot_cost(P: torch.Tensor, C: torch.Tensor, a: torch.Tensor,

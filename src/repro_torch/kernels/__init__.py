@@ -8,13 +8,20 @@ and bound with ctypes, each kernel beside its plain PyTorch version:
 * ``uot_batched`` — kernels c (``batched_colsum``), d
   (``batched_fused_iteration``) and e (``batched_fused_iteration_frow``),
   a stack or a lane pool streamed (``csrc/uot_batched.cu``);
-* ``uot_resident`` — kernels f (``resident_solve``) and g
-  (``resident_stepped``), each lane's tile resident in one block's shared
-  memory (``csrc/uot_resident.cu``).
+* ``uot_resident`` — kernels f (``resident_solve``), g
+  (``resident_stepped``) and k (``resident_solve_pc``), each lane's tile
+  resident in one block's shared memory (``csrc/uot_resident.cu``);
+* ``uot_geometry`` — kernels h (``batched_pc_colsum``), i
+  (``batched_pc_first_iteration``) and j (``batched_pc_materialize``), the
+  Gibbs tile of a point cloud computed from its coordinates
+  (``csrc/uot_geometry.cu``, the tile function in ``csrc/uot_gibbs.cuh``).
 
 ``ops`` holds the single-problem, batched, bucketed, resident and stepped
-solvers and the ``impl='auto'`` dispatch; ``ref`` the plain oracles.
+solvers, their ``geometry=`` paths and the ``impl='auto'`` dispatch;
+``ref`` the plain oracles.
 """
-from repro_torch.kernels import ops, ref, uot_batched, uot_fused, uot_resident
+from repro_torch.kernels import (ops, ref, uot_batched, uot_fused,
+                                 uot_geometry, uot_resident)
 
-__all__ = ["ops", "ref", "uot_batched", "uot_fused", "uot_resident"]
+__all__ = ["ops", "ref", "uot_batched", "uot_fused", "uot_geometry",
+           "uot_resident"]

@@ -28,9 +28,11 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# kernels c, d, e | a, b | f, g; the headers are hashed with them
-SOURCES = ("uot_batched.cu", "uot_fused.cu", "uot_resident.cu")
-HEADERS = ("uot_common.cuh", "uot_stream.cuh")
+# kernels c, d, e | a, b | f, g, k | h, i, j; the headers are hashed with
+# them
+SOURCES = ("uot_batched.cu", "uot_fused.cu", "uot_resident.cu",
+           "uot_geometry.cu")
+HEADERS = ("uot_common.cuh", "uot_stream.cuh", "uot_gibbs.cuh")
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -119,6 +121,20 @@ def load() -> ctypes.CDLL:
             lib.uot_resident_stepped.argtypes = [
                 P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, F, I, P]
             lib.uot_resident_stepped.restype = I
+            lib.uot_resident_solve_pc.argtypes = [
+                P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I,
+                F, I, F, F, I, P]
+            lib.uot_resident_solve_pc.restype = I
+            lib.uot_pc_materialize.argtypes = [
+                P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P]
+            lib.uot_pc_materialize.restype = I
+            lib.uot_pc_colsum.argtypes = [
+                P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P]
+            lib.uot_pc_colsum.restype = I
+            lib.uot_pc_first_iteration.argtypes = [
+                P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                I, I, F, I, F, F, I, P]
+            lib.uot_pc_first_iteration.restype = I
             lib.uot_resident_smem_bytes.argtypes = [I, I]
             lib.uot_resident_smem_bytes.restype = ctypes.c_longlong
             lib.uot_error_string.argtypes = [I]

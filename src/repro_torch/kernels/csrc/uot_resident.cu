@@ -1,8 +1,8 @@
-// Resident MAP-UOT kernels for Hopper (sm_90a): kernels f and g of the
+// Resident MAP-UOT kernels for Hopper (sm_90a): kernels f, g and k of the
 // port, behind ops.solve_fused_resident and ops.solve_fused_stepped_resident
-// (impl='auto' / 'resident'). Built and bound like uot_batched.cu (see
-// there); the launchers return cudaGetLastError(), or a negative code for
-// arguments they do not take.
+// (impl='auto' / 'resident'; k under geometry=). Built and bound like
+// uot_batched.cu (see there); the launchers return cudaGetLastError(), or a
+// negative code for arguments they do not take.
 //
 // One block per lane. The block loads its lane's whole coupling from device
 // memory ONCE, upcast to fp32 into dynamic shared memory, runs the
@@ -41,7 +41,7 @@
 // distributed shared memory would widen both the occupancy and the
 // resident shape range.
 
-#include "uot_common.cuh"
+#include "uot_gibbs.cuh"
 
 namespace {
 
@@ -80,6 +80,15 @@ __device__ __forceinline__ float nan_max(float x, float y) {
   return (y > x || y != y) ? y : x;
 }
 
+// Load one lane's marginals into shared memory (no barrier).
+__device__ __forceinline__ void load_marginals(const Resident& s,
+                                               const float* a,
+                                               const float* b, int M,
+                                               int N) {
+  for (int n = threadIdx.x; n < N; n += kResThreads) s.bs[n] = b[n];
+  for (int m = threadIdx.x; m < M; m += kResThreads) s.as[m] = a[m];
+}
+
 // Load one lane's storage tile into shared memory as fp32, with its
 // marginals. Ends with a barrier.
 template <typename T>
@@ -89,8 +98,7 @@ __device__ __forceinline__ void load_lane(const Resident& s, const T* A,
   const size_t mn = (size_t)M * N;
   for (size_t i = threadIdx.x; i < mn; i += kResThreads)
     s.tile[i] = to_f(A[i]);
-  for (int n = threadIdx.x; n < N; n += kResThreads) s.bs[n] = b[n];
-  for (int m = threadIdx.x; m < M; m += kResThreads) s.as[m] = a[m];
+  load_marginals(s, a, b, M, N);
   __syncthreads();
 }
 
@@ -161,25 +169,18 @@ __device__ __forceinline__ float resident_iteration(const Resident& s, int M,
   return err;
 }
 
-// ---------------------------------------------------------------------------
-// Kernel f: the whole solve of each lane, in place on A (B, M, N).
-// Replaces src/repro/kernels/uot_resident.py:140 resident_solve
-// (pallas_call :160). Per lane: initial column sums from the upcast tile
+// The whole solve of lane l once its fp32 tile and marginals are in
+// shared memory (kernels f and k): initial column sums from the tile
 // (uot_resident.py:93), then iterations while it < num_iters and, with a
-// tolerance, err > tol (:102-111); a fixed count without one.
+// tolerance, err > tol (:102-111); a fixed count without one. Stores the
+// solution to Pl, rounded once, and the lane's colsum, iters and err.
 template <typename T>
-__global__ void __launch_bounds__(kResThreads, 1)
-    resident_solve_kernel(T* __restrict__ A, const float* __restrict__ a,
-                          const float* __restrict__ b,
-                          float* __restrict__ colsum, int* __restrict__ iters,
-                          float* __restrict__ err_out, int M, int N,
-                          float fi, int fi_one, int num_iters, float tol,
-                          int has_tol) {
-  extern __shared__ float smem_f[];
-  const int l = blockIdx.x;
-  const Resident s = carve(smem_f, M, N);
-  T* Al = A + (size_t)l * M * N;
-  load_lane<T>(s, Al, a + (size_t)l * M, b + (size_t)l * N, M, N);
+__device__ __forceinline__ void solve_lane(const Resident& s, T* Pl,
+                                           float* colsum, int* iters,
+                                           float* err_out, int l, int M,
+                                           int N, float fi, int fi_one,
+                                           int num_iters, float tol,
+                                           int has_tol) {
   for (int m = threadIdx.x; m < M; m += kResThreads) s.fr[m] = 1.f;
   // Algorithm-1 preprocessing: column sums of the upcast tile, a thread
   // per column (the owner of cs[n] in the loop), rows in order
@@ -194,13 +195,72 @@ __global__ void __launch_bounds__(kResThreads, 1)
     err = resident_iteration(s, M, N, fi, fi_one);
     ++it;
   }
-  store_lane<T>(s, Al, M, N);
+  store_lane<T>(s, Pl, M, N);
   for (int n = threadIdx.x; n < N; n += kResThreads)
     colsum[(size_t)l * N + n] = s.cs[n];
   if (threadIdx.x == 0) {
     iters[l] = it;
     err_out[l] = err;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel f: the whole solve of each lane, in place on A (B, M, N).
+// Replaces src/repro/kernels/uot_resident.py:140 resident_solve
+// (pallas_call :160).
+template <typename T>
+__global__ void __launch_bounds__(kResThreads, 1)
+    resident_solve_kernel(T* __restrict__ A, const float* __restrict__ a,
+                          const float* __restrict__ b,
+                          float* __restrict__ colsum, int* __restrict__ iters,
+                          float* __restrict__ err_out, int M, int N,
+                          float fi, int fi_one, int num_iters, float tol,
+                          int has_tol) {
+  extern __shared__ float smem_f[];
+  const int l = blockIdx.x;
+  const Resident s = carve(smem_f, M, N);
+  T* Al = A + (size_t)l * M * N;
+  load_lane<T>(s, Al, a + (size_t)l * M, b + (size_t)l * N, M, N);
+  solve_lane<T>(s, Al, colsum, iters, err_out, l, M, N, fi, fi_one,
+                num_iters, tol, has_tol);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel k: kernel f with the tile computed from coordinates. Replaces
+// src/repro/kernels/uot_resident.py:212 resident_solve_pc (pallas_call
+// :236). Each lane's block writes the masked Gibbs tile of uot_gibbs.cuh,
+// rounded through the storage type, straight into f's shared-memory fp32
+// tile (a warp per row, so the row's coordinates are one broadcast read)
+// and then runs f's solve unchanged: on the same coordinates k and f on
+// kernel j's output give the same P, colsum, iters and err, bit for bit.
+// Device-memory traffic per solve is the coordinates in and M*N*s out;
+// nothing is staged besides f's tile, so the budget is f's
+// (resident_smem_bytes). Bound: operations, as f's, plus about 2d + 4 and
+// one expf per entry for the tile, once.
+template <typename T, int D>
+__global__ void __launch_bounds__(kResThreads, 1)
+    resident_solve_pc_kernel(T* __restrict__ P, const GibbsArgs g,
+                             const float* __restrict__ a,
+                             const float* __restrict__ b,
+                             float* __restrict__ colsum,
+                             int* __restrict__ iters,
+                             float* __restrict__ err_out, int M, int N,
+                             float fi, int fi_one, int num_iters, float tol,
+                             int has_tol) {
+  extern __shared__ float smem_k[];
+  const int l = blockIdx.x;
+  const Resident s = carve(smem_k, M, N);
+  const GibbsProblem<D> tile(g, l, M, N);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r = warp; r < M; r += kResWarps) {
+    float* row = s.tile + (size_t)r * N;
+    for (int c = lane; c < N; c += 32) row[c] = to_f(from_f<T>(tile(r, c)));
+  }
+  load_marginals(s, a + (size_t)l * M, b + (size_t)l * N, M, N);
+  __syncthreads();
+  solve_lane<T>(s, P + (size_t)l * M * N, colsum, iters, err_out, l, M, N,
+                fi, fi_one, num_iters, tol, has_tol);
 }
 
 // ---------------------------------------------------------------------------
@@ -276,6 +336,21 @@ int launch_solve(void* A, const float* a, const float* b, float* colsum,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int launch_solve_pc(void* P, const GibbsArgs& g, const float* a,
+                    const float* b, float* colsum, int* iters, float* err,
+                    int B, int M, int N, float fi, int fi_one, int num_iters,
+                    float tol, int has_tol, cudaStream_t stream) {
+  const size_t smem = resident_smem_bytes(M, N);
+  auto kern = resident_solve_pc_kernel<T, D>;
+  const int e = set_smem(kern, smem);
+  if (e != 0) return e;
+  kern<<<B, kResThreads, smem, stream>>>(static_cast<T*>(P), g, a, b, colsum,
+                                         iters, err, M, N, fi, fi_one,
+                                         num_iters, tol, has_tol);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_stepped(void* P, float* colsum, float* frow, int* iters,
                    uint8_t* conv, const uint8_t* active, const float* a,
@@ -342,4 +417,33 @@ extern "C" int uot_resident_stepped(void* P, float* colsum, float* frow,
                                          active, a, b, L, M, N, fi, fi_one,
                                          n_iters, num_iters, tol, has_tol, s);
   return -2;
+}
+
+// Kernel k. P (B, M, N) fp32 (dtype 0) or bf16 (dtype 1), written with the
+// solution; a (B, M), b (B, N) fp32; the coordinates as for kernel j
+// (uot_geometry.cu): x (B, M, d), xn (B, M), yt (B, d, N), yn (B, N) fp32,
+// m_valid, n_valid (B,) int32; out: colsum (B, N) fp32, iters (B,) int32,
+// err (B,) fp32. Returns -1 for shapes whose lane does not fit one block's
+// shared memory, -2 for an unknown dtype.
+extern "C" int uot_resident_solve_pc(
+    void* P, const float* a, const float* b, const float* x,
+    const float* xn, const float* yt, const float* yn, const int* m_valid,
+    const int* n_valid, float* colsum, int* iters, float* err, int B, int M,
+    int N, int d, int dtype, float fi, int fi_one, int num_iters, float tol,
+    int has_tol, float reg, float scale, int scaled, void* stream) {
+  if (!valid_lanes(B, M, N) || num_iters < 0 || d <= 0) return -1;
+  if (dtype != 0 && dtype != 1) return -2;
+  const GibbsArgs g = gibbs_args(x, xn, yt, yn, m_valid, n_valid, d, reg,
+                                 scale, scaled);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dim(d, [&](auto Dc) {
+    constexpr int D = decltype(Dc)::value;
+    if (dtype == 0)
+      return launch_solve_pc<float, D>(P, g, a, b, colsum, iters, err, B, M,
+                                       N, fi, fi_one, num_iters, tol,
+                                       has_tol, s);
+    return launch_solve_pc<__nv_bfloat16, D>(P, g, a, b, colsum, iters, err,
+                                             B, M, N, fi, fi_one, num_iters,
+                                             tol, has_tol, s);
+  });
 }

@@ -22,6 +22,11 @@
 // Ragged edges: rows past M are masked by the block's row range; columns
 // are loaded as 16-byte vectors when N is a multiple of the vector width
 // and the base is aligned, else one element at a time (VEC == 1).
+//
+// Tile sources. Both kernels read their tile through a policy (LoadTile
+// below, GibbsTile in uot_gibbs.cuh), so kernels h and i of the geometry
+// path are these same kernels with the tile computed from coordinates:
+// same grid, same plan, same summation order as c and d.
 #pragma once
 
 #include "uot_common.cuh"
@@ -78,6 +83,28 @@ inline int launch_reduce(const float* partial, float* out,
   return (int)cudaGetLastError();
 }
 
+// Where a streamed kernel's tile comes from: a template policy, so one
+// device code serves the stored coupling (LoadTile: kernels a-e) and the
+// Gibbs tile computed from coordinates (GibbsTile in uot_gibbs.cuh:
+// kernels h, i). raw(r, v) gives vector v of row r of one problem in the
+// storage type; a computed tile is rounded to it, so a consumer sees the
+// values a stored tile would hold. kComputed sources take no lane mask and
+// always emit the row factors.
+template <typename T, int VEC>
+struct LoadTile {
+  struct Args {};
+  static constexpr bool kComputed = false;
+  const T* A;
+  int N;
+  __device__ __forceinline__ LoadTile(Args, const T* base, int b, int M,
+                                      int N_)
+      : A(base + (size_t)b * M * N_), N(N_) {}
+  __device__ __forceinline__ typename Raw<T, VEC>::type raw(int r,
+                                                            int v) const {
+    return load_raw<T, VEC>(A + (size_t)r * N + (size_t)v * VEC);
+  }
+};
+
 // Column sums of a stack, (B, M, N) -> partials (B, R, N), then the
 // in-order reduction above to (B, N): kernel c, and kernel a at B = 1.
 // Bound: bytes, B*M*N*s read once (the partials add B*R*N*4 written and
@@ -85,36 +112,40 @@ inline int launch_reduce(const float* partial, float* out,
 // [r*rows_per_cta, ...) of problem b and the kThreads*VEC columns of tile
 // t, one vector column per thread, four rows' loads in flight, summed in
 // row order. Tiling the columns as well as the rows lets one problem fill
-// the card with few row blocks, and so few partials.
-template <typename T, int VEC>
+// the card with few row blocks, and so few partials. With a computed
+// source (kernel h) the same blocks sum the same rows in the same order,
+// so h's sums equal c's over the stored tile, bit for bit.
+template <typename T, int VEC, class Src>
 __global__ void __launch_bounds__(kThreads)
-    colsum_partial_kernel(const T* __restrict__ A, float* __restrict__ partial,
-                          int M, int N, int rows_per_cta) {
+    colsum_partial_kernel(const T* __restrict__ A,
+                          const typename Src::Args src_args,
+                          float* __restrict__ partial, int M, int N,
+                          int rows_per_cta) {
   const int b = blockIdx.z;
   const int cta = blockIdx.x;
   const int R = gridDim.x;
   const int v = blockIdx.y * kThreads + threadIdx.x;
   if (v >= N / VEC) return;
+  const Src src(src_args, A, b, M, N);
   const int row_lo = cta * rows_per_cta;
   const int row_hi = min(M, row_lo + rows_per_cta);
   float acc[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-  const T* p = A + ((size_t)b * M + row_lo) * N + (size_t)v * VEC;
   int r = row_lo;
-  for (; r + 4 <= row_hi; r += 4, p += 4 * (size_t)N) {
+  for (; r + 4 <= row_hi; r += 4) {
     float x0[VEC], x1[VEC], x2[VEC], x3[VEC];
-    to_floats<T, VEC>(load_raw<T, VEC>(p), x0);
-    to_floats<T, VEC>(load_raw<T, VEC>(p + N), x1);
-    to_floats<T, VEC>(load_raw<T, VEC>(p + 2 * (size_t)N), x2);
-    to_floats<T, VEC>(load_raw<T, VEC>(p + 3 * (size_t)N), x3);
+    to_floats<T, VEC>(src.raw(r, v), x0);
+    to_floats<T, VEC>(src.raw(r + 1, v), x1);
+    to_floats<T, VEC>(src.raw(r + 2, v), x2);
+    to_floats<T, VEC>(src.raw(r + 3, v), x3);
 #pragma unroll
     for (int k = 0; k < VEC; ++k)
       acc[k] = (((acc[k] + x0[k]) + x1[k]) + x2[k]) + x3[k];
   }
-  for (; r < row_hi; ++r, p += N) {
+  for (; r < row_hi; ++r) {
     float x0[VEC];
-    to_floats<T, VEC>(load_raw<T, VEC>(p), x0);
+    to_floats<T, VEC>(src.raw(r, v), x0);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) acc[k] += x0[k];
   }
@@ -129,12 +160,14 @@ inline bool valid_grid(int B, int M, int N, int rows_per_cta, int R) {
          (size_t)(R - 1) * rows_per_cta < (size_t)M;
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, class Src = LoadTile<T, VEC>>
 int launch_colsum(const void* A, float* partial, float* out, int B, int M,
-                  int N, int rows_per_cta, int R, cudaStream_t stream) {
+                  int N, int rows_per_cta, int R, cudaStream_t stream,
+                  const typename Src::Args src_args = {}) {
   const int tiles = (N / VEC + kThreads - 1) / kThreads;
-  colsum_partial_kernel<T, VEC><<<dim3(R, tiles, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(A), partial, M, N, rows_per_cta);
+  colsum_partial_kernel<T, VEC, Src>
+      <<<dim3(R, tiles, B), kThreads, 0, stream>>>(
+          static_cast<const T*>(A), src_args, partial, M, N, rows_per_cta);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_reduce(partial, out, nullptr, B, R, N, stream);
@@ -168,9 +201,14 @@ inline int colsum_checked(const void* A, float* partial, float* out, int B,
 // the two-pass variant re-reads the sub-block from L2.
 // MASKED: a lane with mask 0 is skipped by every block, so its tile,
 // carried column sums and frow stay as they were, bit for bit.
-template <typename T, int VEC, bool MASKED, bool ONEPASS>
+// Src: where the input tile comes from (LoadTile: A itself, updated in
+// place; GibbsTile: computed from coordinates, kernel i, whose output A
+// is then write-only and whose two-pass variant recomputes the rows it
+// would have re-read). The arithmetic and its order do not depend on Src.
+template <typename T, int VEC, bool MASKED, bool ONEPASS, class Src>
 __global__ void __launch_bounds__(kThreads)
-    fused_iter_kernel(T* __restrict__ A, const float* __restrict__ fcol,
+    fused_iter_kernel(T* __restrict__ A, const typename Src::Args src_args,
+                      const float* __restrict__ fcol,
                       const float* __restrict__ a,
                       const uint8_t* __restrict__ mask,
                       float* __restrict__ frow_out,
@@ -194,6 +232,7 @@ __global__ void __launch_bounds__(kThreads)
   T* tile = reinterpret_cast<T*>(smem + head);     // bm * N (ONEPASS)
 
   T* Ab = A + (size_t)b * M * N;
+  const Src src(src_args, A, b, M, N);
   const float* fb = fcol + (size_t)b * N;
   const float* ab = a + (size_t)b * M;
 
@@ -213,10 +252,9 @@ __global__ void __launch_bounds__(kThreads)
       const int part = warp % wpr;
       float s = 0.f;
       if (slot < nrows) {
-        const T* row = Ab + (size_t)(r0 + slot) * N;
 #pragma unroll 4
         for (int v = part * 32 + lane; v < nvec; v += wpr * 32) {
-          const typename Raw<T, VEC>::type raw = load_raw<T, VEC>(row + (size_t)v * VEC);
+          const typename Raw<T, VEC>::type raw = src.raw(r0 + slot, v);
           if constexpr (ONEPASS)
             store_raw<T, VEC>(tile + (size_t)slot * N + (size_t)v * VEC, raw);
           float x[VEC], f[VEC];
@@ -237,7 +275,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int p = 0; p < wpr; ++p) rs = __fadd_rn(rs, red[tid * wpr + p]);
       const float f = safe_pow(ab[r0 + tid], rs, fi, fi_one);
       frow_s[tid] = f;
-      if constexpr (MASKED) frow_out[(size_t)b * M + r0 + tid] = f;
+      if constexpr (MASKED || Src::kComputed)
+        frow_out[(size_t)b * M + r0 + tid] = f;
     }
     __syncthreads();
     // phase 2: scale, store in place, accumulate the column partials
@@ -252,7 +291,7 @@ __global__ void __launch_bounds__(kThreads)
         if constexpr (ONEPASS)
           raw = load_raw<T, VEC>(tile + (size_t)r * N + (size_t)v * VEC);
         else
-          raw = load_raw<T, VEC>(p);
+          raw = src.raw(r0 + r, v);
         float x[VEC], y[VEC];
         to_floats<T, VEC>(raw, x);
         const float fr = frow_s[r];
@@ -282,36 +321,40 @@ inline size_t fused_smem_bytes(int N, int bm, int itemsize, int one_pass) {
   return head + (one_pass ? (size_t)bm * N * itemsize : 0);
 }
 
-template <typename T, int VEC, bool MASKED, bool ONEPASS>
-int launch_fused(void* A, const float* fcol, const float* a,
-                 const uint8_t* mask, float* colsum, float* frow,
-                 float* partial, int B, int M, int N, int bm,
-                 int rows_per_cta, int R, float fi, int fi_one,
-                 cudaStream_t stream) {
-  auto kern = fused_iter_kernel<T, VEC, MASKED, ONEPASS>;
+template <typename T, int VEC, bool MASKED, bool ONEPASS, class Src>
+int launch_fused(void* A, const typename Src::Args& src_args,
+                 const float* fcol, const float* a, const uint8_t* mask,
+                 float* colsum, float* frow, float* partial, int B, int M,
+                 int N, int bm, int rows_per_cta, int R, float fi,
+                 int fi_one, cudaStream_t stream) {
+  auto kern = fused_iter_kernel<T, VEC, MASKED, ONEPASS, Src>;
   const size_t smem = fused_smem_bytes(N, bm, sizeof(T), ONEPASS);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(R, B), kThreads, smem, stream>>>(
-      static_cast<T*>(A), fcol, a, mask, frow, partial, M, N, bm,
+      static_cast<T*>(A), src_args, fcol, a, mask, frow, partial, M, N, bm,
       rows_per_cta, fi, fi_one);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_reduce(partial, colsum, mask, B, R, N, stream);
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, class Src = LoadTile<T, VEC>>
 int dispatch_fused(void* A, const float* fcol, const float* a,
                    const uint8_t* mask, float* colsum, float* frow,
                    float* partial, int B, int M, int N, int bm,
                    int rows_per_cta, int R, int one_pass, float fi,
-                   int fi_one, cudaStream_t stream) {
-#define UOT_FUSED(MK, OP)                                                    \
-  return launch_fused<T, VEC, MK, OP>(A, fcol, a, mask, colsum, frow,        \
-                                      partial, B, M, N, bm, rows_per_cta, R, \
-                                      fi, fi_one, stream)
-  if (mask != nullptr) {
+                   int fi_one, cudaStream_t stream,
+                   const typename Src::Args src_args = {}) {
+#define UOT_FUSED(MK, OP)                                                   \
+  return launch_fused<T, VEC, MK, OP, Src>(A, src_args, fcol, a, mask,      \
+                                           colsum, frow, partial, B, M, N,  \
+                                           bm, rows_per_cta, R, fi, fi_one, \
+                                           stream)
+  if constexpr (Src::kComputed) {
+    if (mask != nullptr || frow == nullptr) return -4;
+  } else if (mask != nullptr) {
     if (one_pass) UOT_FUSED(true, true);
     UOT_FUSED(true, false);
   }

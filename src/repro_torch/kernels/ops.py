@@ -1,4 +1,4 @@
-"""Public solver entry points over the port's kernels (a-g).
+"""Public solver entry points over the port's kernels (a-k).
 
 The port of the dense half of ``repro.kernels.ops``:
 
@@ -51,8 +51,17 @@ What differs from the reference, by design:
 * **Host traffic.** Payloads cross to the card through pinned memory in
   one copy per batch; results come back the same way.
 
-``geometry=`` (kernels h-k) raises ``NotImplementedError`` until its
-slice lands.
+Cost geometries. ``geometry=`` on ``solve_fused``, ``solve_fused_batched``
+and ``solve_fused_resident`` (exclusive with ``A0``) names the cost source
+(``repro_torch.geometry``). Dense and grid geometries materialize their
+Gibbs kernel once and take the dense path. A ``PointCloudGeometry`` never
+has its kernel in device memory on the streamed path: kernel h takes the
+initial column sums from the coordinates, kernel i runs iteration 1 and
+writes the rescaled ``A1``, and kernels d / e take over from iteration 2
+(kernel j materializes ``K`` only when ``num_iters == 0``); on the resident
+tier kernel k computes each lane's tile in shared memory. On the same
+coordinates the couplings equal the dense path's over the materialized
+kernel (``geometry.kernel(reg)``), bit for bit in fp32 and bf16.
 """
 from __future__ import annotations
 
@@ -66,7 +75,9 @@ import torch
 from repro_torch.core.convergence import lane_factor_drift
 from repro_torch.core.problem import UOTConfig, rescale_factors
 from repro_torch.device import resolve_device
-from repro_torch.kernels import uot_batched, uot_fused, uot_resident
+from repro_torch.geometry import Geometry, PointCloudGeometry
+from repro_torch.kernels import (uot_batched, uot_fused, uot_geometry,
+                                 uot_resident)
 from repro_torch.kernels.uot_batched import SMEM_LIMIT, pick_block_m
 
 __all__ = [
@@ -80,8 +91,6 @@ __all__ = [
     "solve_fused_stepped", "to_device", "to_host",
 ]
 
-_GEOMETRY_SLICE = ("cost geometries (geometry=, kernels h-k) arrive with the "
-                   "geometry slice of the port (ROADMAP Open items 1, item 6)")
 # how often the tol batched solve reads back "all lanes converged"
 _CONV_CHECK_EVERY = 4
 
@@ -104,8 +113,8 @@ def _storage(cfg: UOTConfig, storage_dtype) -> torch.dtype:
 
 def resident_fits(M: int, N: int, cfg: UOTConfig, *,
                   storage_dtype=None) -> bool:
-    """Whether an (M, N) problem can run on the resident tier (kernels f
-    and g) of this card.
+    """Whether an (M, N) problem can run on the resident tier (kernels f,
+    g and k) of this card.
 
     Rebuilt for Hopper: a lane runs in one block, whose shared memory
     (``SMEM_LIMIT`` = 232,448 bytes on an H100) holds only the fp32
@@ -117,6 +126,15 @@ def resident_fits(M: int, N: int, cfg: UOTConfig, *,
     reference's 32 MiB VMEM model (in and out tiles double-buffered) has
     no counterpart. The test is static, and the batch size does not enter
     it: each lane is its own block.
+
+    The same budget holds for kernel k (a point-cloud geometry's tile
+    computed from coordinates): k writes the computed tile into f's fp32
+    working tile and stages nothing else. The reference widens its
+    implicit budget (``Mp*Np*(s + 8)`` against the dense
+    ``Mp*Np*(2s + 8)``) because there the dense kernel double-buffers an
+    *input* tile in VMEM that the implicit one does not need: a TPU fact.
+    Kernel f never holds an input tile in shared memory, so on Hopper
+    there is nothing to drop.
     """
     _storage(cfg, storage_dtype)
     return uot_resident.lane_fits(M, N)
@@ -318,10 +336,20 @@ def solve_fused(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
     raises ``ValueError``. 'auto' picks by ``resident_fits`` and, over
     budget, streams through ``solve_fused_batched`` at B=1 *with*
     ``cfg.tol``, so results differ by tier in traffic, never in math.
+
+    ``geometry=`` (exclusive with ``A0``) sources the initial coupling
+    from a ``repro_torch.geometry.Geometry``, ``A0 = K = exp(-C / reg)``.
+    The solve is routed through ``solve_fused_batched`` at B=1, so it has
+    ``cfg.tol`` early-exit semantics under every ``impl``.
     """
-    if geometry is not None:
-        raise NotImplementedError(_GEOMETRY_SLICE)
     _check_impl(impl)
+    if geometry is not None:
+        if A0 is not None:
+            raise ValueError("pass either A0 or geometry=, not both")
+        P, colsum = solve_fused_batched(
+            None, _lead(a), _lead(b), cfg, storage_dtype=storage_dtype,
+            impl=impl, geometry=geometry, device=device)
+        return P[0], colsum[0]
     if impl in ("auto", "resident"):
         M, N = np.shape(A0)
         if _resolve_auto(impl, M, N, cfg, storage_dtype):
@@ -373,10 +401,21 @@ def solve_fused_batched(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
     runs the whole solve on kernel f (bf16 storage is rounded once at the
     end instead of every iteration); ``impl='auto'`` picks the tier by
     ``resident_fits``.
+
+    ``geometry=`` (exclusive with ``A0``) sources the initial coupling
+    from a ``Geometry``. A ``PointCloudGeometry`` (batched coordinates,
+    optional per-problem valid counts) streams through kernels h, i and
+    then d / e, or runs on kernel k where ``impl='auto'`` / ``'resident'``
+    route it resident; dense and grid geometries materialize their kernel
+    and take the dense path.
     """
-    if geometry is not None:
-        raise NotImplementedError(_GEOMETRY_SLICE)
     _check_impl(impl)
+    if geometry is not None:
+        if A0 is not None:
+            raise ValueError("pass either A0 or geometry=, not both")
+        return _solve_fused_batched_geometry(
+            geometry, a, b, cfg, storage_dtype=storage_dtype, impl=impl,
+            device=device)
     if impl in ("auto", "resident"):
         _, M, N = np.shape(A0)
         if _resolve_auto(impl, M, N, cfg, storage_dtype):
@@ -392,16 +431,24 @@ def solve_fused_batched(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
 
 
 def _solve_fused_batched_streamed(A, a, b, cfg: UOTConfig):
-    fi = cfg.fi
     colsum = uot_batched.batched_colsum(A)
+    conv = torch.zeros(A.shape[0], dtype=torch.bool, device=A.device)
+    return _streamed_loop(A, colsum, a, b, cfg, first=0,
+                          prev_frow=torch.ones_like(a), conv=conv)
+
+
+def _streamed_loop(A, colsum, a, b, cfg: UOTConfig, *, first: int,
+                   prev_frow, conv):
+    """Iterations ``first .. cfg.num_iters - 1`` of the batched streamed
+    solve, in place: kernel d per iteration, or with ``cfg.tol`` kernel e
+    with the lanes frozen one by one (``prev_frow`` / ``conv`` carry the
+    row factors and convergence of iteration ``first - 1``)."""
+    fi = cfg.fi
     if cfg.tol is None:
-        for _ in range(cfg.num_iters):
+        for _ in range(first, cfg.num_iters):
             A, colsum, _ = _stepped_iter(A, colsum, None, ap=a, bp=b, fi=fi)
         return A, colsum
-    B = A.shape[0]
-    prev_frow = torch.ones_like(a)
-    conv = torch.zeros(B, dtype=torch.bool, device=A.device)
-    for i in range(cfg.num_iters):
+    for i in range(first, cfg.num_iters):
         if i % _CONV_CHECK_EVERY == 0 and bool(conv.all()):
             break
         upd = ~conv
@@ -425,11 +472,20 @@ def solve_fused_resident(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
     stationarity criterion: same iterate, same iteration count. Raises
     ``ValueError`` for a shape over ``resident_fits``.
 
+    ``geometry=`` (exclusive with ``A0``) sources the tile from a
+    ``Geometry``: a ``PointCloudGeometry`` runs on kernel k, each lane's
+    tile computed in shared memory from its coordinates (per solve: the
+    coordinates in, M*N out); dense and grid geometries materialize their
+    kernel first.
+
     Returns (P, colsum, iters, err), with a leading batch axis only if A0
-    had one.
+    had one (the marginals, under ``geometry=``).
     """
     if geometry is not None:
-        raise NotImplementedError(_GEOMETRY_SLICE)
+        if A0 is not None:
+            raise ValueError("pass either A0 or geometry=, not both")
+        return _solve_fused_resident_geometry(
+            geometry, a, b, cfg, storage_dtype=storage_dtype, device=device)
     single = len(np.shape(A0)) == 2
     M, N = np.shape(A0)[-2:]
     if not resident_fits(M, N, cfg, storage_dtype=storage_dtype):
@@ -446,6 +502,112 @@ def solve_fused_resident(A0, a, b, cfg: UOTConfig, *, storage_dtype=None,
     P, colsum, iters, err = uot_resident.resident_solve(
         A, a.contiguous(), b.contiguous(), fi=cfg.fi,
         num_iters=cfg.num_iters, tol=cfg.tol)
+    if single:
+        return P[0], colsum[0], iters[0], err[0]
+    return P, colsum, iters, err
+
+
+# ---- cost geometries ---------------------------------------------------------
+
+def _require_geometry(geom) -> None:
+    if not isinstance(geom, Geometry):
+        raise TypeError(f"geometry= expects a repro_torch.geometry.Geometry, "
+                        f"got {type(geom).__name__}")
+
+
+def _marginals(a, b, dev):
+    return (to_device(a, dev).float().contiguous(),
+            to_device(b, dev).float().contiguous())
+
+
+def _solve_fused_batched_geometry(geom, a, b, cfg: UOTConfig, *,
+                                  storage_dtype=None, impl=None, device=None):
+    """Route a batched geometry solve: a point cloud to kernel k (when
+    'auto' / 'resident' resolve resident) or to the streamed h, i, d / e
+    path; dense and grid geometries to the dense path on their kernel."""
+    _require_geometry(geom)
+    B = np.shape(a)[0]
+    if not isinstance(geom, PointCloudGeometry):
+        A0 = geom.kernel(cfg.reg)
+        if A0.dim() == 2:
+            A0 = A0.expand((B,) + tuple(A0.shape)).contiguous()
+        return solve_fused_batched(A0, a, b, cfg, storage_dtype=storage_dtype,
+                                   impl=impl, device=device)
+    geom = geom.batched()
+    if geom.x.shape[0] != B:
+        raise ValueError(f"geometry batch {geom.x.shape[0]} != marginal "
+                         f"batch {B}")
+    M, N = geom.shape
+    if impl in ("auto", "resident") and _resolve_auto(
+            impl, M, N, cfg, storage_dtype):
+        P, colsum, _, _ = solve_fused_resident(
+            None, a, b, cfg, storage_dtype=storage_dtype, geometry=geom,
+            device=device)
+        return P, colsum
+    dev = resolve_device(device)
+    a, b = _marginals(a, b, dev)
+    return _solve_fused_batched_geometry_streamed(
+        geom.operands(dev), a, b, cfg, _storage(cfg, storage_dtype),
+        geom.scale)
+
+
+def _solve_fused_batched_geometry_streamed(operands, a, b, cfg: UOTConfig,
+                                           sdt: torch.dtype, scale: float):
+    """The streamed batched solve with the Gibbs kernel computed on the
+    card: kernel h for the initial column sums, kernel i for iteration 1
+    (its first M*N write is the rescaled A1), then kernels d / e as on the
+    dense path — the same bookkeeping, the first iteration's drift taken
+    against unit factors — so the iterates equal the dense path's over
+    ``geometry.kernel(reg)``. ``num_iters == 0`` materializes the kernel
+    with kernel j."""
+    kw = dict(reg=float(cfg.reg), scale=scale)
+    colsum0 = uot_geometry.batched_pc_colsum(*operands, storage_dtype=sdt,
+                                             **kw)
+    if cfg.num_iters == 0:
+        return (uot_geometry.batched_pc_materialize(*operands, out_dtype=sdt,
+                                                    **kw), colsum0)
+    fcol = rescale_factors(b, colsum0, cfg.fi)
+    A, colsum, frow1 = uot_geometry.batched_pc_first_iteration(
+        fcol, a, *operands, fi=cfg.fi, out_dtype=sdt, **kw)
+    conv = torch.zeros(A.shape[0], dtype=torch.bool, device=A.device)
+    if cfg.tol is not None:
+        conv = lane_factor_drift(frow1, torch.ones_like(a)) <= cfg.tol
+    return _streamed_loop(A, colsum, a, b, cfg, first=1, prev_frow=frow1,
+                          conv=conv)
+
+
+def _solve_fused_resident_geometry(geom, a, b, cfg: UOTConfig, *,
+                                   storage_dtype=None, device=None):
+    """The resident tier with the tile sourced from a ``Geometry``."""
+    _require_geometry(geom)
+    if not isinstance(geom, PointCloudGeometry):
+        A0 = geom.kernel(cfg.reg)
+        if A0.dim() == 2 and len(np.shape(a)) == 2:
+            A0 = A0.expand((np.shape(a)[0],) + tuple(A0.shape)).contiguous()
+        return solve_fused_resident(A0, a, b, cfg,
+                                    storage_dtype=storage_dtype,
+                                    device=device)
+    single = len(np.shape(a)) == 1
+    if single:
+        a, b = _lead(a), _lead(b)
+    geom = geom.batched()
+    B = np.shape(a)[0]
+    if geom.x.shape[0] != B:
+        raise ValueError(f"geometry batch {geom.x.shape[0]} != marginal "
+                         f"batch {B}")
+    M, N = geom.shape
+    if not resident_fits(M, N, cfg, storage_dtype=storage_dtype):
+        raise ValueError(
+            f"({M}, {N}) exceeds the resident budget (one block's shared "
+            f"memory, {SMEM_LIMIT} bytes); use impl='auto' to fall back to "
+            f"the streamed tier")
+    dev = resolve_device(device)
+    a, b = _marginals(a, b, dev)
+    x, xn, y, yn, mv, nv = geom.operands(dev)
+    P, colsum, iters, err = uot_resident.resident_solve_pc(
+        x, xn, y, yn, a, b, mv, nv, fi=cfg.fi, reg=float(cfg.reg),
+        scale=geom.scale, num_iters=cfg.num_iters, tol=cfg.tol,
+        out_dtype=_storage(cfg, storage_dtype))
     if single:
         return P[0], colsum[0], iters[0], err[0]
     return P, colsum, iters, err

@@ -1,7 +1,11 @@
-"""Resident MAP-UOT kernels f and g: CUDA wrappers and plain versions.
+"""Resident MAP-UOT kernels f, g and k: CUDA wrappers and plain versions.
 
-The port of ``repro.kernels.uot_resident``'s ``resident_solve`` (kernel f)
-and ``resident_stepped`` (kernel g): one block per lane loads the lane's
+The port of ``repro.kernels.uot_resident``'s ``resident_solve`` (kernel f),
+``resident_stepped`` (kernel g) and ``resident_solve_pc`` (kernel k, f with
+the tile computed from point-cloud coordinates instead of loaded, so a
+solve reads O((M + N) * d) floats and writes M*N once; on the same
+coordinates k equals f on kernel j's output, bit for bit on the card): one
+block per lane loads the lane's
 coupling once into shared memory as fp32, iterates Algorithm 1 there and
 stores it once, so a solve (f) or a chunk (g) moves the M*N tile through
 device memory once each way instead of once per iteration. Each wrapper
@@ -35,8 +39,10 @@ from repro_torch.core.problem import rescale_factors
 from repro_torch.kernels import uot_batched as ub
 from repro_torch.kernels.uot_batched import _DTYPE_CODE, SMEM_LIMIT
 
-LAUNCHES = {"resident_solve": 0, "resident_stepped": 0}
-PLAIN_CALLS = {"resident_solve": 0, "resident_stepped": 0}
+LAUNCHES = {"resident_solve": 0, "resident_stepped": 0,
+            "resident_solve_pc": 0}
+PLAIN_CALLS = {"resident_solve": 0, "resident_stepped": 0,
+               "resident_solve_pc": 0}
 
 RES_WARPS = 32          # 1024 threads per block; one drift slot per warp
 
@@ -94,6 +100,10 @@ def resident_solve_plain(A, a, b, *, fi: float, num_iters: int,
     overwrites ``A`` with the solution; returns ``(A, colsum, iters,
     err)``."""
     PLAIN_CALLS["resident_solve"] += 1
+    return _solve_math(A, a, b, fi=fi, num_iters=num_iters, tol=tol)
+
+
+def _solve_math(A, a, b, *, fi, num_iters, tol):
     B = A.shape[0]
     X = A.to(torch.float32, copy=True)            # upcast once
     a, b = a.float(), b.float()
@@ -238,3 +248,65 @@ def resident_stepped(P: torch.Tensor, colsum: torch.Tensor,
     LAUNCHES["resident_stepped"] += 1
     _build.check(code, "resident_stepped")
     return P, colsum, frow, iters, converged
+
+
+# ---- kernel k: the whole solve, the tile computed from coordinates ------------
+
+def resident_solve_pc_plain(x, xn, y, yn, a, b, m_valid, n_valid, *,
+                            fi: float, reg: float, scale: float = 1.0,
+                            num_iters: int, tol: float | None = None,
+                            out_dtype=torch.float32):
+    """Plain version of kernel k: kernel f's plain version on the plain
+    tile (``uot_geometry``'s, rounded through ``out_dtype``)."""
+    from repro_torch.kernels.uot_geometry import _gibbs_stack
+    PLAIN_CALLS["resident_solve_pc"] += 1
+    A = _gibbs_stack(x, xn, y, yn, m_valid, n_valid, reg=reg, scale=scale,
+                     dtype=out_dtype)
+    return _solve_math(A, a, b, fi=fi, num_iters=num_iters, tol=tol)
+
+
+def resident_solve_pc(x, xn, y, yn, a, b, m_valid, n_valid, *, fi: float,
+                      reg: float, scale: float = 1.0, num_iters: int,
+                      tol: float | None = None, out_dtype=torch.float32):
+    """Whole-solve resident MAP-UOT for a point-cloud stack: each lane's
+    Gibbs tile is computed in shared memory from its coordinates (x
+    (B, M, d), xn (B, M), y (B, N, d), yn (B, N) fp32; m_valid, n_valid
+    (B,) int32 valid counts masking the rest to exact zeros), then solved
+    as kernel f solves a loaded tile. a (B, M), b (B, N) fp32. Returns
+    ``(P, colsum, iters, err)`` like ``resident_solve``, P a new (B, M, N)
+    tensor in ``out_dtype``."""
+    from repro_torch.kernels import uot_geometry as ug
+    B, M, N, d = ug._check_coords(x, xn, y, yn, m_valid, n_valid)
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    ub._check_vec(a, (B, M), "a")
+    ub._check_vec(b, (B, N), "b")
+    if not lane_fits(M, N):
+        raise ValueError(
+            f"({M}, {N}) does not fit the resident kernels: a lane needs "
+            f"{resident_smem_bytes(M, N)} bytes of shared memory, the limit "
+            f"is {SMEM_LIMIT}; use impl='auto' to stream it")
+    if ub._route(x) == "plain":
+        return resident_solve_pc_plain(
+            x, xn, y, yn, a, b, m_valid, n_valid, fi=fi, reg=reg,
+            scale=scale, num_iters=num_iters, tol=tol, out_dtype=out_dtype)
+    build, lib = ug._on_card(x, xn, y, yn, a, b, m_valid, n_valid)
+    dev = x.device
+    P = torch.empty((B, M, N), dtype=out_dtype, device=dev)
+    colsum = torch.empty((B, N), dtype=torch.float32, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    err = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return P, colsum, iters, err
+    yt, ptrs, (reg_f, scale_f, scaled) = ug._gibbs_ptrs(
+        x, xn, y, yn, m_valid, n_valid, reg, scale)
+    code = lib.uot_resident_solve_pc(
+        P.data_ptr(), a.data_ptr(), b.data_ptr(), *ptrs, colsum.data_ptr(),
+        iters.data_ptr(), err.data_ptr(), B, M, N, d, _DTYPE_CODE[out_dtype],
+        float(fi), int(fi == 1.0), int(num_iters),
+        float(tol) if tol is not None else 0.0, int(tol is not None),
+        reg_f, scale_f, scaled, ub._stream())
+    LAUNCHES["resident_solve_pc"] += 1
+    build.check(code, "resident_solve_pc")
+    return P, colsum, iters, err

@@ -11,8 +11,14 @@ launch of kernel f, and each flush's decisions are recorded in
 a bucket is exact, so every response equals its standalone solve. The
 flush is a barrier: for latency-sensitive traffic use ``UOTScheduler``.
 
-``submit_points`` (coordinate payloads) arrives with the geometry slice;
-the LLM ``ServeEngine`` with the LLM-substrate slice.
+``submit_points`` enqueues a point-cloud problem (``C = ||x - y||^2 /
+scale``): the request carries ``(M + N) * (d + 1)`` floats instead of an
+``M * N`` matrix, and the flush solves each (bucket, d, scale) group with
+``ops.solve_fused_batched(geometry=...)``, whose kernels compute the Gibbs
+tiles on the card (h, i, then d / e; k where ``impl='auto'`` routes
+resident). A point request's coupling equals dense submission of
+``geometry.kernel(cfg.reg)``, bit for bit. The LLM ``ServeEngine`` comes
+with the LLM-substrate slice.
 """
 from __future__ import annotations
 
@@ -24,17 +30,26 @@ from repro_torch import obs as obslib
 from repro_torch.core.problem import UOTConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as uot_ops
+from repro_torch.serve.points import point_payload, stage_points
 
 
 @dataclasses.dataclass
 class UOTRequest:
     rid: int
-    K: np.ndarray               # (M, N) initial coupling / Gibbs kernel
+    K: np.ndarray | None        # (M, N) initial coupling / Gibbs kernel
     a: np.ndarray               # (M,) row marginal
     b: np.ndarray               # (N,) column marginal
+    # coordinate payload (set iff K is None): a point-cloud request
+    x: np.ndarray | None = None     # (M, d)
+    y: np.ndarray | None = None     # (N, d)
+    xn: np.ndarray | None = None    # (M,) squared norms, computed once
+    yn: np.ndarray | None = None    # (N,)
+    scale: float = 1.0
 
     @property
     def shape(self) -> tuple[int, int]:
+        if self.K is None:
+            return (self.x.shape[0], self.y.shape[0])
         return tuple(self.K.shape)
 
 
@@ -88,8 +103,19 @@ class UOTBatchEngine:
                                       np.asarray(b)))
         return rid
 
-    def submit_points(self, *args, **kwargs) -> int:
-        raise NotImplementedError(uot_ops._GEOMETRY_SLICE)
+    def submit_points(self, x, y, a, b, *, scale: float = 1.0) -> int:
+        """Enqueue a point-cloud problem, the squared-Euclidean cost of the
+        (M, d) / (N, d) clouds ``C = ||x - y||^2 / scale``. The payload
+        stays host-side: ``(M + N) * (d + 1)`` floats instead of the
+        ``M * N`` kernel."""
+        x, y, xn, yn = point_payload(x, y)
+        rid = self._next_rid
+        self._next_rid += 1
+        self._c_submitted.inc()
+        self._queue.append(UOTRequest(rid, None, np.asarray(a),
+                                      np.asarray(b), x=x, y=y, xn=xn, yn=yn,
+                                      scale=float(scale)))
+        return rid
 
     @property
     def pending(self) -> int:
@@ -107,14 +133,50 @@ class UOTBatchEngine:
         def _observe(kind, *, M, N, itemsize, num_iters):
             decisions[(M, N)] = kind
 
+        dense = [r for r in reqs if r.K is not None]
+        points = [r for r in reqs if r.K is None]
+        out: dict[int, np.ndarray] = {}
         with uot_ops.dispatch_observer(_observe):
-            results = uot_ops.solve_fused_bucketed(
-                [(r.K, r.a, r.b) for r in reqs], self.cfg,
-                storage_dtype=self.storage_dtype, impl=self.impl,
-                max_batch=self.max_batch, m_bucket=self.m_bucket,
-                n_bucket=self.n_bucket, device=self.device)
+            if dense:
+                results = uot_ops.solve_fused_bucketed(
+                    [(r.K, r.a, r.b) for r in dense], self.cfg,
+                    storage_dtype=self.storage_dtype, impl=self.impl,
+                    max_batch=self.max_batch, m_bucket=self.m_bucket,
+                    n_bucket=self.n_bucket, device=self.device)
+                out.update({r.rid: P for r, (P, _) in zip(dense, results)})
+            if points:
+                out.update(self._flush_points(points))
         self.last_dispatch = decisions
-        return {r.rid: P for r, (P, _) in zip(reqs, results)}
+        return {r.rid: out[r.rid] for r in reqs}
+
+    def _flush_points(self, reqs) -> dict[int, np.ndarray]:
+        """Bucketed batch solving of point requests: the chunking of
+        ``ops.solve_fused_bucketed`` (padded-shape buckets, chunks of
+        ``max_batch`` rounded up by ``canonical_batch``), grouped also by
+        (d, scale), each chunk's coordinates staged in one pinned copy
+        (``stage_points``) and solved by ``solve_fused_batched`` with the
+        batched geometry. Zero-padding is exact through the kernels'
+        valid-count masks."""
+        groups: dict[tuple, list[UOTRequest]] = {}
+        for r in reqs:
+            bucket = uot_ops.bucket_shape(*r.shape, self.m_bucket,
+                                          self.n_bucket)
+            groups.setdefault((bucket, r.x.shape[1], r.scale), []).append(r)
+        results: dict[int, np.ndarray] = {}
+        for ((Mb, Nb), _, scale), members in groups.items():
+            for lo in range(0, len(members), self.max_batch):
+                chunk = members[lo:lo + self.max_batch]
+                Bpad = uot_ops.canonical_batch(len(chunk), self.max_batch)
+                geom, a, b = stage_points(chunk, Bpad, Mb, Nb, scale,
+                                          self.device)
+                P, _ = uot_ops.solve_fused_batched(
+                    None, a, b, self.cfg, storage_dtype=self.storage_dtype,
+                    impl=self.impl, geometry=geom, device=self.device)
+                P = uot_ops._np_f32(uot_ops.to_host(P))
+                for k, r in enumerate(chunk):
+                    M, N = r.shape
+                    results[r.rid] = P[k, :M, :N].copy()
+        return results
 
     @staticmethod
     def cache_stats() -> dict:

@@ -20,7 +20,14 @@ The port of the core of ``repro.serve.scheduler`` (serving tier 3):
   detector, quarantine with one log-domain retry (``retried_ok``), and a
   ``poll`` that resolves every rid exactly once;
 * ``shed_policy='drop'`` refuses a lane to a request whose deadline passed
-  before admission.
+  before admission;
+* point-cloud requests (``submit_points``) carry coordinates and squared
+  norms, ``(M + N) * (d + 1)`` floats instead of ``M * N``. At admission a
+  round's point requests of one (d, scale) cross to the card in one
+  pinned copy and kernel j materializes their masked Gibbs kernels there,
+  straight into the lanes: a lane's trajectory equals dense submission of
+  ``geometry.kernel(cfg.reg)``, bit for bit, and dense and point requests
+  share pools.
 
 Host traffic per round is what the reference moves: the O(L) ``iters`` /
 ``converged`` / ``healthy`` flags in one read-back, the evicted lanes in
@@ -29,8 +36,7 @@ pinned copy per pool.
 
 Not in this slice (each raises ``NotImplementedError``):
 ``predictive=True``, ``shed_policy='degrade'``, ``brownout``,
-``measurements``, ``fault_injector``, non-empty ``slos`` and
-``submit_points``.
+``measurements``, ``fault_injector`` and non-empty ``slos``.
 """
 from __future__ import annotations
 
@@ -47,7 +53,9 @@ from repro_torch.core.health import (InvalidProblemError, escalate_log_solve,
 from repro_torch.core.predict import IterPredictor
 from repro_torch.core.problem import UOTConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.geometry import PointCloudGeometry
+from repro_torch.kernels import ops, uot_geometry
+from repro_torch.serve.points import point_payload, stage_points
 
 # registry counter names ("serve.<name>"): the running totals stats()
 # reports, as in the reference
@@ -117,10 +125,11 @@ class RequestFailure:
 class ScheduledRequest:
     """A queued UOT problem plus its scheduling attributes. The payload
     stays host-side numpy while queued and crosses to the card once, at
-    admission, already padded to the bucket shape."""
+    admission, already padded to the bucket shape. Point-cloud requests
+    carry coordinates and squared norms instead of ``K``."""
 
     rid: int
-    K: np.ndarray
+    K: np.ndarray | None
     a: np.ndarray
     b: np.ndarray
     shape: tuple[int, int]
@@ -129,6 +138,12 @@ class ScheduledRequest:
     deadline: float | None = None
     priority: int = 0
     retries: int = 0
+    # coordinate payload (set iff K is None)
+    x: np.ndarray | None = None     # (M, d)
+    y: np.ndarray | None = None     # (N, d)
+    xn: np.ndarray | None = None    # (M,) squared norms, computed once
+    yn: np.ndarray | None = None    # (N,)
+    scale: float = 1.0
 
     def edf_key(self):
         """Earliest-deadline-first with priority then FIFO tie-breaks."""
@@ -379,36 +394,57 @@ class UOTScheduler:
         recorded, ``poll(rid)`` resolves to the failure) for problems the
         admission validator refuses.
         """
+        self._check_queue()
+        K = np.asarray(K)
+        return self._enqueue("dense", K.shape, a, b, deadline, priority, K=K)
+
+    def submit_points(self, x, y, a, b, *, scale: float = 1.0,
+                      deadline: float | None = None,
+                      priority: int = 0) -> int:
+        """Enqueue a point-cloud problem, the squared-Euclidean cost of the
+        (M, d) / (N, d) clouds ``C = ||x - y||^2 / scale``; returns its
+        request id. The payload is ``(M + N) * (d + 1)`` floats; the Gibbs
+        kernel is materialized on the card at admission (kernel j),
+        straight into the lane pool. Raises as ``submit`` does, and
+        ``ValueError`` for clouds of different d.
+        """
+        self._check_queue()
+        x, y, xn, yn = point_payload(x, y)
+        return self._enqueue("points", (x.shape[0], y.shape[0]), a, b,
+                             deadline, priority, K=None, x=x, y=y, xn=xn,
+                             yn=yn, scale=float(scale))
+
+    def _check_queue(self) -> None:
         if len(self._queue) >= self.max_queue:
             raise QueueFullError(
                 f"queue at max_queue={self.max_queue}; retry later",
                 queue_depth=len(self._queue))
-        K = np.asarray(K)
+
+    def _enqueue(self, kind: str, shape, a, b, deadline, priority,
+                 **payload) -> int:
+        """Validate and queue a request of ``kind`` ('dense' or 'points')
+        whose payload fields are ``payload``; returns its rid."""
         a = np.asarray(a)
         b = np.asarray(b)
         rid = self._next_rid
         self._next_rid += 1
-        M, N = K.shape
+        M, N = shape
         bucket = ops.bucket_shape(M, N, self.m_bucket, self.n_bucket)
         now = self.clock()
         self._c["submitted"].inc()
         self.obs.tracer.emit(rid, "submit", M=M, N=N, bucket=list(bucket),
-                             kind="dense", deadline=deadline,
-                             priority=priority)
+                             kind=kind, deadline=deadline, priority=priority)
         if self.validate:
             try:
                 validate_problem(self.cfg, a, b, shape=(M, N), rid=rid)
             except InvalidProblemError as err:
                 self._reject(rid, bucket, deadline, err, now)
         self._queue.append(ScheduledRequest(
-            rid=rid, K=K, a=a, b=b, shape=(M, N), bucket=bucket,
-            arrival=now, deadline=deadline, priority=priority))
+            rid=rid, a=a, b=b, shape=(M, N), bucket=bucket, arrival=now,
+            deadline=deadline, priority=priority, **payload))
         self.obs.tracer.emit(rid, "queue", depth=len(self._queue),
                              route="lane")
         return rid
-
-    def submit_points(self, *args, **kwargs) -> int:
-        raise NotImplementedError(ops._GEOMETRY_SLICE)
 
     @property
     def pending(self) -> int:
@@ -489,9 +525,22 @@ class UOTScheduler:
             return None, 0
         req.retries += 1
         P, stats, ok = escalate_log_solve(
-            req.K, req.a, req.b, self.cfg, factor=self.escalate_factor,
-            device=self.device)
+            self._request_kernel(req), req.a, req.b, self.cfg,
+            factor=self.escalate_factor, device=self.device)
         return (P if ok else None), stats["iters"]
+
+    def _request_kernel(self, req: ScheduledRequest):
+        """The request's (M, N) coupling matrix for an off-lane re-solve:
+        the stored payload of a dense request; for a point request its
+        Gibbs kernel, materialized by kernel j at B=1 on the device."""
+        if req.K is not None:
+            return req.K
+        dev = self.device
+        g = PointCloudGeometry(
+            x=ops.to_device(req.x, dev), y=ops.to_device(req.y, dev),
+            xn=ops.to_device(req.xn, dev), yn=ops.to_device(req.yn, dev),
+            scale=req.scale)
+        return g.kernel(self.cfg.reg)
 
     def _trim_results(self) -> None:
         while len(self._results) > self.max_results:
@@ -664,7 +713,19 @@ class UOTScheduler:
             self.obs.tracer.emit(req.rid, "place", lane=lane, device=-1,
                                  bucket=list(req.bucket), route="lane")
         for bucket, placed in placements.items():
-            self._admit_dense(bucket, placed)
+            # dense requests ship their K; point requests ship coordinates
+            # and norms and have K materialized on the device, grouped by
+            # (d, scale), which the kernel takes per launch
+            dense = [(lane, r) for lane, r in placed if r.K is not None]
+            points: dict[tuple[int, float], list] = {}
+            for lane, r in placed:
+                if r.K is None:
+                    points.setdefault((r.x.shape[1], r.scale),
+                                      []).append((lane, r))
+            if dense:
+                self._admit_dense(bucket, dense)
+            for (_, scale), group in points.items():
+                self._admit_points(bucket, group, scale)
         self._queue = remaining
 
     def _admit_dense(self, bucket, placed) -> None:
@@ -683,6 +744,22 @@ class UOTScheduler:
         ops.lane_admit(pool.state, [lane for lane, _ in placed],
                        pool.stage(placed), ops.to_device(ap, dev),
                        ops.to_device(bp, dev))
+
+    def _admit_points(self, bucket, placed, scale: float) -> None:
+        """Land a round's point requests of one (d, scale) in the pool: the
+        coordinates, norms, marginals and valid counts cross in one pinned
+        copy (``stage_points``), kernel j materializes the masked Gibbs
+        stack of the placed lanes only, in the pool's storage dtype, and
+        ``lane_admit`` takes that device tensor as it is — no host round
+        trip, and kernel c takes its column sums as for a dense payload."""
+        pool = self._pools[bucket]
+        Mb, Nb = bucket
+        geom, a, b = stage_points([r for _, r in placed], len(placed), Mb,
+                                  Nb, scale, self.device)
+        K = uot_geometry.batched_pc_materialize(
+            *geom.operands(), reg=float(self.cfg.reg), scale=scale,
+            out_dtype=pool.state.P.dtype)
+        ops.lane_admit(pool.state, [lane for lane, _ in placed], K, a, b)
 
     def _snapshot_occupancy(self) -> None:
         occ = {str(b): p.occupancy for b, p in self._pools.items()}

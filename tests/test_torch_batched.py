@@ -228,7 +228,7 @@ class TestSolveFusedBatched:
                 assert tops.dispatch_stats() == routed
             close(Pt, Pj, "float32", call=False)
             close(cst, csj, "float32", call=False)
-        with pytest.raises(NotImplementedError, match="geometry"):
+        with pytest.raises(TypeError, match="Geometry"):
             tops.solve_fused_batched(None, a, b, TConfig(), device="cpu",
                                      geometry=object())
         with pytest.raises(ValueError, match="impl"):

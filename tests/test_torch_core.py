@@ -23,6 +23,7 @@ from repro.core import problem as jproblem
 from repro_torch import core as tcore
 from repro_torch import convert, obs as tobs
 from repro_torch.core import health as thealth
+from repro_torch.geometry import PointCloudGeometry
 from repro_torch.kernels import ops as tops
 from repro_torch.serve import UOTBatchEngine, UOTScheduler
 
@@ -77,11 +78,16 @@ class TestProblem:
         assert got == pytest.approx(want, rel=1e-5)
 
     def test_dense_problem_only(self):
+        """A dense problem holds C and no geometry; a problem holds exactly
+        one of the two (the reference's rule)."""
         K, a, b, C = problem(5, 6, 2)
         p = tcore.UOTProblem.from_cost(C, a, b)
-        assert p.shape == (5, 6)
-        with pytest.raises(NotImplementedError, match="geometry"):
-            tcore.UOTProblem.from_points(None, None, a, b)
+        assert p.shape == (5, 6) and p.geometry is None
+        assert torch.equal(p.initial_coupling(0.1),
+                           tcore.gibbs_kernel(torch.tensor(C), 0.1))
+        assert torch.equal(p.cost_matrix(), torch.tensor(C))
+        with pytest.raises(ValueError, match="exactly one"):
+            tcore.UOTProblem(a=torch.tensor(a), b=torch.tensor(b))
 
 
 class TestPlainSolvers:
@@ -223,7 +229,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
 
 @pytest.mark.parametrize("entry", ["scheduler", "engine", "lane_state",
                                    "batched", "bucketed", "escalate",
-                                   "fused", "fused_auto", "resident"])
+                                   "fused", "fused_auto", "resident",
+                                   "from_points", "from_grid",
+                                   "point_cloud", "geometry_solve"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                           monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -240,6 +248,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
         "fused": lambda: tops.solve_fused(K, a, b, cfg),
         "fused_auto": lambda: tops.solve_fused(K, a, b, cfg, impl="auto"),
         "resident": lambda: tops.solve_fused_resident(K, a, b, cfg),
+        "from_points": lambda: tcore.UOTProblem.from_points(
+            K[:, :2], K[:, :2], a, a),
+        "from_grid": lambda: tcore.UOTProblem.from_grid([K], a, b),
+        "point_cloud": lambda: PointCloudGeometry.from_points(K, K),
+        "geometry_solve": lambda: tops.solve_fused(
+            None, a, a, cfg, geometry=PointCloudGeometry.from_points(
+                K, K, device="cpu")),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels a, b, f and g against their plain versions on
-the card (all tests carry the ``cuda`` marker and skip without a card).
+"""The port's CUDA kernels a, b, f, g, h, i, j and k against their plain
+versions on the card (all tests carry the ``cuda`` marker and skip
+without a card).
 
 This file imports neither JAX nor the reference package, so it runs on a
 machine that has only PyTorch for CUDA:
@@ -16,12 +17,22 @@ both sides round once from nearly equal fp32 values, are held to one bf16
 rounding (2**-7 of the value) per entry, and to 5e-2 pointwise and 1e-2
 mass. Final drifts (differences of row factors near 1) within 1e-6
 absolute. Repeated launches and closed lanes are held bitwise.
+
+The point-cloud kernels: j's Gibbs entries within 2 ulps of its plain
+version (both compute the same separately rounded operations and call the
+same ``expf``), one bf16 ulp in bf16; h and i against their plain versions
+at the one-call tolerance; k as f. Inside the port, bit for bit: h equals
+c over j's output, i equals d over it, and k equals f over it (P, colsum,
+iteration counts, drift).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.geometry.pointcloud import sq_norms
+from repro_torch.kernels import uot_batched as tub
 from repro_torch.kernels import uot_fused as tuf
+from repro_torch.kernels import uot_geometry as tug
 from repro_torch.kernels import uot_resident as tur
 
 F32_CALL = 1e-5       # one kernel call, fp32
@@ -31,6 +42,7 @@ TINY, FLOOR = 1e-37, 2.0 ** -100
 BF16_POINT, BF16_MASS = 5e-2, 1e-2
 DRIFT_ATOL = 1e-6     # final drifts: a difference of factors near 1
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+J_ULPS = {"float32": 2, "bfloat16": 1}   # kernel j against its plain version
 
 
 @pytest.fixture
@@ -145,3 +157,107 @@ def test_kernel_g_matches_plain_version(cuda, dname):
     for lane in (1, 3, 4):                  # gate closed: untouched
         for t, t0 in zip(s1, state):
             assert torch.equal(t[lane], t0[lane])
+
+
+def clouds(B, M, N, d, seed, device):
+    """Point-cloud operands on the card, ragged valid counts (the first
+    problem full), and marginals zero past them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((B, M, d), generator=g, device=device)
+    y = torch.rand((B, N, d), generator=g, device=device)
+    mv = torch.full((B,), M, dtype=torch.int32, device=device)
+    nv = torch.full((B,), N, dtype=torch.int32, device=device)
+    mv[1:] = torch.randint(max(1, M // 2), M + 1, (B - 1,), generator=g,
+                           device=device, dtype=torch.int32)
+    nv[1:] = torch.randint(max(1, N // 2), N + 1, (B - 1,), generator=g,
+                           device=device, dtype=torch.int32)
+    rows = torch.arange(M, device=device)[None] < mv[:, None]
+    cols = torch.arange(N, device=device)[None] < nv[:, None]
+    a = (torch.rand((B, M), generator=g, device=device) + 0.5) * rows
+    b = (torch.rand((B, N), generator=g, device=device) + 0.5) * cols
+    a = a / a.sum(1, keepdim=True)
+    b = b / b.sum(1, keepdim=True) * 1.3
+    xn, yn = sq_norms(x), sq_norms(y)
+    return (x, xn, y, yn, mv, nv), a, b
+
+
+def ulps(got, want):
+    """Largest distance in units in the last place between two tensors of
+    non-negative values of one floating type."""
+    itype = torch.int32 if got.dtype == torch.float32 else torch.int16
+    return int((got.view(itype).long() - want.view(itype).long()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("B,M,N,d", [(3, 300, 1500, 2), (2, 77, 33, 3),
+                                     (4, 128, 384, 9), (2, 9, 5000, 3)])
+def test_kernels_h_i_j_match_plain_versions(cuda, dname, B, M, N, d):
+    tdt = DTYPES[dname]
+    ops_, a, _ = clouds(B, M, N, d, M + N + d, cuda)
+    kw = dict(reg=0.05, scale=1.5)
+    K = tug.batched_pc_materialize(*ops_, out_dtype=tdt, **kw)
+    Kp = tug.batched_pc_materialize_plain(*ops_, out_dtype=tdt, **kw)
+    assert K.dtype == tdt and ulps(K, Kp) <= J_ULPS[dname]
+    mv, nv = ops_[4].tolist(), ops_[5].tolist()
+    for k in range(B):
+        assert (K[k, mv[k]:] == 0).all() and (K[k, :, nv[k]:] == 0).all()
+    cs = tug.batched_pc_colsum(*ops_, storage_dtype=tdt, **kw)
+    close(cs, tug.batched_pc_colsum_plain(*ops_, storage_dtype=tdt, **kw),
+          "float32")
+    g = torch.Generator(device=cuda).manual_seed(B)
+    fcol = torch.rand((B, N), generator=g, device=cuda) + 0.5
+    A1, c1, f1 = tug.batched_pc_first_iteration(fcol, a, *ops_, fi=0.9,
+                                                out_dtype=tdt, **kw)
+    A2, c2, f2 = tug.batched_pc_first_iteration_plain(
+        fcol, a, *ops_, fi=0.9, out_dtype=tdt, **kw)
+    close(A1, A2, dname)
+    close(c1, c2, "float32")
+    close(f1, f2, "float32")
+    # repeated launches give the same bits
+    assert torch.equal(tug.batched_pc_materialize(*ops_, out_dtype=tdt,
+                                                  **kw), K)
+    assert torch.equal(tug.batched_pc_colsum(*ops_, storage_dtype=tdt,
+                                             **kw), cs)
+    A3, c3, f3 = tug.batched_pc_first_iteration(fcol, a, *ops_, fi=0.9,
+                                                out_dtype=tdt, **kw)
+    assert torch.equal(A3, A1) and torch.equal(c3, c1) and torch.equal(f3, f1)
+    # the dense twins over j's output: h is c, i is d (and e), bit for bit
+    assert torch.equal(tub.batched_colsum(K), cs)
+    Kd = K.clone()
+    _, cd = tub.batched_fused_iteration(Kd, fcol, a, fi=0.9)
+    assert torch.equal(Kd, A1) and torch.equal(cd, c1)
+    Ke, live = K.clone(), torch.ones(B, dtype=torch.bool, device=cuda)
+    _, ce, fe = tub.batched_fused_iteration_frow(
+        Ke, fcol, a, live, torch.zeros((B, N), device=cuda), fi=0.9)
+    assert torch.equal(Ke, A1) and torch.equal(ce, c1)
+    assert torch.equal(fe, f1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("B,M,N,d", [(8, 128, 384, 2), (8, 100, 300, 3),
+                                     (3, 31, 200, 9)])
+@pytest.mark.parametrize("tol", [None, 1e-4])
+def test_kernel_k_matches_plain_version_and_f(cuda, dname, B, M, N, d, tol):
+    tdt = DTYPES[dname]
+    ops_, a, b = clouds(B, M, N, d, M + N, cuda)
+    kw = dict(fi=1.0 / 1.05, num_iters=200, tol=tol)
+    gk = dict(reg=0.05, scale=1.0)
+    P, cs, it, err = tur.resident_solve_pc(*ops_[:4], a, b, *ops_[4:],
+                                           out_dtype=tdt, **gk, **kw)
+    Pp, csp, itp, errp = tur.resident_solve_pc_plain(
+        *ops_[:4], a, b, *ops_[4:], out_dtype=tdt, **gk, **kw)
+    close(P, Pp, dname, call=False)
+    close(cs, csp, "float32", call=False)
+    assert torch.equal(it, itp)
+    fin = torch.isfinite(errp)
+    assert torch.equal(torch.isfinite(err), fin)
+    assert torch.allclose(err[fin], errp[fin], rtol=1e-3, atol=DRIFT_ATOL)
+    # repeated launches, and f over j's output: the same bits
+    P2, cs2, it2, err2 = tur.resident_solve_pc(*ops_[:4], a, b, *ops_[4:],
+                                               out_dtype=tdt, **gk, **kw)
+    K = tug.batched_pc_materialize(*ops_, out_dtype=tdt, **gk)
+    Pf, csf, itf, errf = tur.resident_solve(K, a, b, **kw)
+    for got in ((P2, cs2, it2, err2), (Pf, csf, itf, errf)):
+        assert all(torch.equal(u, v) for u, v in zip(got, (P, cs, it, err)))

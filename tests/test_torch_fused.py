@@ -231,7 +231,7 @@ class TestSolveFused:
         K, a, b = problem(256, 256, 9)
         with pytest.raises(ValueError, match="resident budget"):
             tops.solve_fused(K, a, b, tc, impl="resident", device="cpu")
-        with pytest.raises(NotImplementedError, match="geometry"):
+        with pytest.raises(TypeError, match="Geometry"):
             tops.solve_fused(None, a, b, tc, geometry=object(), device="cpu")
         with pytest.raises(ValueError, match="impl"):
             tops.solve_fused(K, a, b, tc, impl="jnp", device="cpu")

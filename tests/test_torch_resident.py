@@ -128,8 +128,10 @@ class TestKernelF:
         np.testing.assert_allclose(cs.numpy(), K.sum(1), rtol=1e-6)
         assert it.tolist() == [0, 0] and torch.isinf(err).all()
         assert tur.PLAIN_CALLS == {"resident_solve": 1,
-                                   "resident_stepped": 0}
-        assert tur.LAUNCHES == {"resident_solve": 0, "resident_stepped": 0}
+                                   "resident_stepped": 0,
+                                   "resident_solve_pc": 0}
+        assert tur.LAUNCHES == {"resident_solve": 0, "resident_stepped": 0,
+                                "resident_solve_pc": 0}
 
     def test_wrapper_refuses_lanes_over_budget(self):
         with pytest.raises(ValueError, match="shared memory"):

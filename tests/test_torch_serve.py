@@ -185,12 +185,22 @@ def test_later_slice_features_raise(kw):
 
 
 def test_submit_points_raises():
+    """Point requests are refused as the reference refuses them: clouds of
+    different d (``ValueError``), a full queue, an invalid problem."""
     _, tc = cfgs()
-    with pytest.raises(NotImplementedError, match="geometry"):
-        UOTScheduler(tc, device="cpu").submit_points(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="geometry"):
-        UOTBatchEngine(tc, device="cpu").submit_points(None, None, None,
-                                                       None)
+    x, y = np.zeros((4, 3), np.float32), np.zeros((5, 2), np.float32)
+    a, b = np.full(4, 0.25, np.float32), np.full(5, 0.2, np.float32)
+    with pytest.raises(ValueError, match="coordinate dims"):
+        UOTScheduler(tc, device="cpu").submit_points(x, y, a, b)
+    with pytest.raises(ValueError, match="coordinate dims"):
+        UOTBatchEngine(tc, device="cpu").submit_points(x, y, a, b)
+    sched = UOTScheduler(tc, device="cpu", max_queue=1)
+    y3 = np.zeros((5, 3), np.float32)
+    sched.submit_points(x, y3, a, b)
+    with pytest.raises(QueueFullError):
+        sched.submit_points(x, y3, a, b)
+    with pytest.raises(InvalidProblemError):
+        UOTScheduler(tc, device="cpu").submit_points(x, y3, -a, b)
 
 
 @pytest.mark.parametrize("tol", [None, 1e-5])
