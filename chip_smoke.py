@@ -63,7 +63,25 @@ The quickest proof that the port starts on the card. It
 12. times h, i, j, k as in 5, and prints the end-to-end time of a B=8
     2048x2048 ``solve_fused_batched`` from host numpy with ``geometry=``
     and dense from the host-materialized kernel (a line, not a claim);
-13. prints a ``{"kernels": [...]}`` line for all eleven kernels, the
+13. (the result lines, last: see 17);
+14. holds the u/v kernels l, m, n, o (``uv_iteration``,
+    ``materialize_coupling``, ``batched_uv_iteration``,
+    ``batched_materialize_coupling``) against their plain versions: l, m
+    at 4096x4096, n, o at B=8 2048x2048 and a ragged B=3 1500x2047 (odd N:
+    vector width 1), fp32 and bf16 K, fi 0.95 and 1.0; l, n per entry of u
+    and K^T u within F32_RTOL, m, o bit for bit, repeated launches bitwise;
+15. drives the fourth slice's path with the counters zeroed just before
+    and read just after: ``solve_uv`` at 4096x4096 (fp32 and bf16 K,
+    materialize True and False) and 8192x8192 fp32, ``solve_uv_batched``
+    at B=8 2048x2048 (fp32 and bf16 K, impl None and 'kernel'), 20
+    iterations. Kernels l, m, n, o must have launched and no plain version
+    may have run; every result is held per entry against the plain u/v
+    iterates on the card (``sinkhorn_uot_uv_fused``'s v, and u one plain
+    half-iteration further, as ``solve_uv`` takes it): u, v 3e-5, P 3e-4;
+16. times l, m, n, o as in 5, the cuBLAS pair ``K @ v`` / ``u @ K`` at
+    n's shape as context, and ``solve_uv_batched`` against
+    ``solve_fused_batched`` at B=8 2048x2048 (a line, not a claim);
+17. prints a ``{"kernels": [...]}`` line for all fifteen kernels, the
     card's name and power limit, and last ``{"ok": true, "device":
     {...}}``.
 
@@ -87,6 +105,8 @@ L2_BYTES = 50 * 2 ** 20          # H100 SXM L2
 F32_RTOL = 1e-5                  # one kernel call, fp32, per entry
 SOLVE_RTOL = 1e-4                # whole solves, fp32
 EACH_RTOL = 3e-5                 # whole resident solves, fp32, per entry
+UV_RTOL, P_RTOL = 3e-5, 3e-4     # u/v solves per entry: u, v and P (the
+                                 # reference's bars, tests/test_kernels.py)
 TINY = 1e-37                     # absolute slack of per-entry checks (the
 FLOOR = 2.0 ** -100              # fp32 subnormal range), plus FLOOR of the
                                  # largest entry of the problem: entries
@@ -120,10 +140,24 @@ KERNELS = {
                                "src/repro/kernels/uot_geometry.py:112"),
     "resident_solve_pc": ("uot_resident.cu",
                           "src/repro/kernels/uot_resident.py:212"),
+    "uv_iteration": ("uot_uv_fused.cu",
+                     "src/repro/kernels/uot_uv_fused.py:52"),
+    "materialize_coupling": ("uot_uv_fused.cu",
+                             "src/repro/kernels/uot_uv_fused.py:90"),
+    "batched_uv_iteration": ("uot_batched.cu",
+                             "src/repro/kernels/uot_batched.py:230"),
+    "batched_materialize_coupling": ("uot_batched.cu",
+                                     "src/repro/kernels/uot_batched.py:268"),
 }
+# the kernels of the first slice (the serving main path)
+FIRST = {"batched_colsum", "batched_fused_iteration",
+         "batched_fused_iteration_frow"}
 # the kernels of the third slice (point-cloud geometries)
 THIRD = {"batched_pc_colsum", "batched_pc_first_iteration",
          "batched_pc_materialize", "resident_solve_pc"}
+# the kernels of the fourth slice (the u/v potential form)
+FOURTH = {"uv_iteration", "materialize_coupling", "batched_uv_iteration",
+          "batched_materialize_coupling"}
 
 
 def log(tag: str, msg: str) -> None:
@@ -339,7 +373,7 @@ def main() -> int:
     launches = dict(ub.LAUNCHES)
     plain_calls = dict(ub.PLAIN_CALLS)
     log("launches", f"main path {launches}; plain versions {plain_calls}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in FIRST),
           f"a kernel of the main path never launched: {launches}")
     check(not any(plain_calls.values()),
           f"a plain version ran on the card path: {plain_calls}")
@@ -729,9 +763,10 @@ def main() -> int:
     launches2 = {**ub.LAUNCHES, **uf.LAUNCHES, **ur.LAUNCHES}
     plain2 = {**ub.PLAIN_CALLS, **uf.PLAIN_CALLS, **ur.PLAIN_CALLS}
     log("launches", f"second path {launches2}; plain versions {plain2}")
-    check(set(launches2) | THIRD == set(KERNELS),
+    check(set(launches2) | THIRD | FOURTH == set(KERNELS),
           "kernel counters incomplete")
-    check(all(v > 0 for k, v in launches2.items() if k not in THIRD),
+    check(all(v > 0 for k, v in launches2.items()
+              if k not in THIRD | FOURTH),
           f"a kernel of the second path never launched: {launches2}")
     check(not any(plain2.values()),
           f"a plain version ran on the card path: {plain2}")
@@ -1151,7 +1186,8 @@ def main() -> int:
     plain3 = {**ub.PLAIN_CALLS, **uf.PLAIN_CALLS, **ur.PLAIN_CALLS,
               **ug.PLAIN_CALLS}
     log("launches", f"third path {launches3}; plain versions {plain3}")
-    check(set(launches3) == set(KERNELS), "kernel counters incomplete")
+    check(set(launches3) | FOURTH == set(KERNELS),
+          "kernel counters incomplete")
     check(all(launches3[k] > 0 for k in THIRD),
           f"a kernel of the third path never launched: {launches3}")
     check(not any(plain3.values()),
@@ -1370,7 +1406,245 @@ def main() -> int:
         f"coordinates with geometry=, {Kh.nbytes} bytes of kernel dense")
     del Kh
 
-    # ---- 13. result lines ------------------------------------------------------
+    # ---- 14. kernels l, m, n, o against their plain versions -----------------
+    from repro_torch.core.health import uv_safe
+    from repro_torch.core.problem import rescale_factors
+    from repro_torch.core.sinkhorn_uv import sinkhorn_uot_uv_fused
+    from repro_torch.kernels import uot_uv_fused as uuv
+
+    def uv_inputs(B, M, N):
+        """K (B, M, N) of Gibbs entries and a as for the solves, and a
+        random v (not all ones, so a K^T u that took the v-scaled tile
+        would show)."""
+        K, a, _ = stacks(B, M, N, reg)
+        v = torch.rand((B, N), generator=gen, device=dev) + 0.5
+        return K, a, v
+
+    def uv_kernels(B):
+        """(names, kernel l or n, its plain version, kernel m or o, its
+        plain version): the single-problem kernels at B = 1."""
+        mod = uuv if B == 1 else ub
+        names = (("uv_iteration", "materialize_coupling") if B == 1 else
+                 ("batched_uv_iteration", "batched_materialize_coupling"))
+        return (names, *(getattr(mod, n + x) for n in names
+                         for x in ("", "_plain")))
+
+    for (B, M, N) in ((1, 4096, 4096), (8, 2048, 2048), (3, 1500, 2047)):
+        K32, a, v = uv_inputs(B, M, N)
+        names, it_fn, it_plain, mat_fn, mat_plain = uv_kernels(B)
+        if B == 1:
+            K32, a, v = K32[0], a[0], v[0]
+        for dt in (f32, b16):
+            K = K32.to(dt)
+            for fi in ((0.95, 1.0) if B == 3 else (0.95,)):
+                what = f"{B}x{M}x{N} {str(dt)[6:]} fi={fi}"
+                u, ktu = it_fn(K, v, a, fi=fi)
+                u_p, ktu_p = it_plain(K, v, a, fi=fi)
+                r_u = each(u, u_p, F32_RTOL, f"{names[0]} u {what}")
+                r_k = each(ktu, ktu_p, F32_RTOL, f"{names[0]} ktu {what}")
+                P = mat_fn(K, u, v)
+                check(all(torch.equal(mat_fn(K, u, v, out_dtype=o),
+                                      mat_plain(K, u, v, out_dtype=o))
+                          for o in (f32, b16)) and P.dtype == f32,
+                      f"{names[1]} {what}: not bit for bit its plain "
+                      f"version")
+                u2, ktu2 = it_fn(K, v, a, fi=fi)
+                check(torch.equal(u2, u) and torch.equal(ktu2, ktu)
+                      and torch.equal(mat_fn(K, u, v), P),
+                      f"{names[0]}/{names[1]} {what}: repeat launch not "
+                      f"bitwise")
+                e_l = max(float((u - u_p).abs().max()),
+                          float((ktu - ktu_p).abs().max()))
+                plan = ub.plan_for(B, M, N, K.element_size())
+                log("kernels", f"{names[0]}, {names[1]} {what}: "
+                    f"{plan.variant} block_m={plan.block_m} rows/cta="
+                    f"{plan.rows_per_cta} ctas={plan.ctas} vec={plan.vec} | "
+                    f"max abs err {e_l:.3g}, per entry max rel err u "
+                    f"{r_u:.3g} ktu {r_k:.3g} | {names[1]} fp32 and bf16 "
+                    f"out bit for bit | repeat=bitwise")
+                if dt == f32 and fi == 0.95 and B in (1, 8):
+                    errs[names[0]] = e_l
+                    errs[names[1]] = float(
+                        (P - mat_plain(K, u, v)).abs().max())
+            del K
+        del K32, a, v
+    torch.cuda.synchronize()
+
+    # ---- 15. the fourth slice's path, counted ---------------------------------
+    def uv_problem(B, M, N):
+        K, a, b = stacks(B, M, N, reg)
+        for k in range(B):
+            check(uv_safe(cfg_fixed, a[k].cpu().numpy(), b[k].cpu().numpy()),
+                  f"u/v problem {B}x{M}x{N} lane {k} is not uv_safe")
+        return K, a, b
+
+    Ku4, au4, bu4 = (x[0] for x in uv_problem(1, 4096, 4096))
+    Ku8, au8, bu8 = (x[0] for x in uv_problem(1, 8192, 8192))
+    Kub, aub, bub = uv_problem(8, 2048, 2048)
+    Ku4h, Kubh = Ku4.to(b16), Kub.to(b16)
+    torch.cuda.synchronize()
+    for mod in (ub, uf, ur, ug, uuv):
+        mod.reset_counts()
+    path4 = {}
+    t0 = time.perf_counter()
+    path4["solve_uv 4096 fp32"] = ops.solve_uv(Ku4, au4, bu4, cfg_fixed)
+    path4["solve_uv 4096 fp32 no P"] = ops.solve_uv(Ku4, au4, bu4, cfg_fixed,
+                                                    materialize=False)
+    path4["solve_uv 4096 bf16"] = ops.solve_uv(Ku4h, au4, bu4, cfg_fixed)
+    path4["solve_uv 4096 bf16 no P"] = ops.solve_uv(Ku4h, au4, bu4,
+                                                    cfg_fixed,
+                                                    materialize=False)
+    path4["solve_uv 8192 fp32"] = ops.solve_uv(Ku8, au8, bu8, cfg_fixed)
+    for impl in (None, "kernel"):
+        path4[f"batched fp32 {impl}"] = ops.solve_uv_batched(
+            Kub, aub, bub, cfg_fixed, impl=impl)
+        path4[f"batched bf16 {impl}"] = ops.solve_uv_batched(
+            Kubh, aub, bub, cfg_fixed, impl=impl)
+    torch.cuda.synchronize()
+    t_solves4 = time.perf_counter() - t0
+    launches4 = {**ub.LAUNCHES, **uf.LAUNCHES, **ur.LAUNCHES, **ug.LAUNCHES,
+                 **uuv.LAUNCHES}
+    plain4 = {**ub.PLAIN_CALLS, **uf.PLAIN_CALLS, **ur.PLAIN_CALLS,
+              **ug.PLAIN_CALLS, **uuv.PLAIN_CALLS}
+    log("launches", f"fourth path {launches4}; plain versions {plain4}")
+    check(set(launches4) == set(KERNELS), "kernel counters incomplete")
+    check(all(launches4[k] > 0 for k in FOURTH),
+          f"a kernel of the fourth path never launched: {launches4}")
+    check(not any(plain4.values()),
+          f"a plain version ran on the card path: {plain4}")
+
+    def plain_uv(K, a, b):
+        """The plain u/v iterates on the card: v from
+        sinkhorn_uot_uv_fused, u one plain half-iteration further (the
+        extra pass solve_uv takes for the final u), and their coupling."""
+        _, (_, v), _ = sinkhorn_uot_uv_fused(K, a, b, cfg_fixed)
+        Kf = K.float()
+        u = rescale_factors(a, Kf @ v, cfg_fixed.fi)
+        return u[:, None] * Kf * v[None, :], u, v
+
+    def held_uv(got, K, a, b, what):
+        """Per entry: u, v within UV_RTOL and P within P_RTOL of the plain
+        iterates (a bf16 K is upcast exactly on both sides, so the fp32
+        bars hold for it too); returns the worst relative errors."""
+        P, (u, v) = got
+        Pp, up, vp = plain_uv(K, a, b)
+        r = [each(u, up, UV_RTOL, f"{what} u"), each(v, vp, UV_RTOL,
+                                                      f"{what} v")]
+        if P is not None:
+            check(P.dtype == f32 and P.shape == K.shape
+                  and bool(torch.isfinite(P).all()), f"{what}: P output")
+            r.append(each(P, Pp, P_RTOL, f"{what} P"))
+            if K.dtype == b16:
+                within(P, Pp, b16, what, call=False)
+        return r
+
+    for name, K, a, b in (("solve_uv 4096 fp32", Ku4, au4, bu4),
+                          ("solve_uv 4096 fp32 no P", Ku4, au4, bu4),
+                          ("solve_uv 4096 bf16", Ku4h, au4, bu4),
+                          ("solve_uv 4096 bf16 no P", Ku4h, au4, bu4),
+                          ("solve_uv 8192 fp32", Ku8, au8, bu8)):
+        got = path4[name]
+        check((got[0] is None) == name.endswith("no P"),
+              f"{name}: materialize flag")
+        r = held_uv(got, K, a, b, name)
+        log("solve_uv", f"{name}: per entry max rel err vs plain u "
+            f"{r[0]:.3g} v {r[1]:.3g}"
+            + (f" P {r[2]:.3g}" if len(r) > 2 else " (no P)"))
+    for name in [k for k in path4 if k.startswith("batched")]:
+        P, (u, v) = path4[name]
+        Kx = Kubh if "bf16" in name else Kub
+        worst = [0.0, 0.0, 0.0]
+        for k in range(Kx.shape[0]):
+            r = held_uv((P[k], (u[k], v[k])), Kx[k], aub[k], bub[k],
+                        f"solve_uv_batched {name} lane {k}")
+            worst = [max(x, y) for x, y in zip(worst, r)]
+        log("solve_uv_batched", f"B=8 2048x2048 {name}: per entry max rel "
+            f"err vs plain u {worst[0]:.3g} v {worst[1]:.3g} P "
+            f"{worst[2]:.3g}")
+    check(all(torch.equal(path4[f"batched {d} None"][0],
+                          path4[f"batched {d} kernel"][0])
+              for d in ("fp32", "bf16")),
+          "solve_uv_batched impl None and 'kernel' differ")
+    log("solve_uv", f"the nine u/v solves took {t_solves4 * 1e3:.1f} ms "
+        f"(host clock, first calls included)")
+    del path4, Ku8, au8, bu8
+    torch.cuda.synchronize()
+
+    # ---- 16. times of kernels l, m, n, o; the u/v pass against MAP-UOT -------
+    for (B, M, N) in ((1, 4096, 4096), (8, 2048, 2048)):
+        mn = B * M * N
+        single = B == 1
+        au = torch.full((B, M), 1.0 / M, device=dev)
+        vu = torch.rand((B, N), generator=gen, device=dev) + 0.5
+        uu = torch.rand((B, M), generator=gen, device=dev) + 0.5
+        for dt in (f32, b16):
+            s = torch.empty((), dtype=dt).element_size()
+            sets = cold(lambda: ((torch.rand((B, M, N), generator=gen,
+                                              device=dev) + 0.1).to(dt),),
+                        mn * s)
+            names, it_fn, it_plain, mat_fn, mat_plain = uv_kernels(B)
+            if single:
+                sets = [(K[0],) for (K,) in sets]
+                vx, ax, ux = vu[0], au[0], uu[0]
+            else:
+                vx, ax, ux = vu, au, uu
+            plan = ub.plan_for(B, M, N, s)
+            shape = [B, M, N] if not single else [M, N]
+            table = {
+                # per entry: K*v and its sum, K*u and its sum
+                names[0]: dict(fn=lambda K: it_fn(K, vx, ax, fi=0.95),
+                               plain=lambda K: it_plain(K, vx, ax, fi=0.95),
+                               library=None,
+                               bytes=mn * s + B * (2 * M + 2 * N) * 4,
+                               flops=4 * mn, shape=shape,
+                               variant=f"{plan.variant}, {B * plan.ctas} "
+                                       f"blocks"),
+                names[1]: dict(fn=lambda K: mat_fn(K, ux, vx),
+                               plain=lambda K: mat_plain(K, ux, vx),
+                               library=None,
+                               bytes=mn * (s + 4) + B * (M + N) * 4,
+                               flops=2 * mn, shape=shape,
+                               variant="P fp32"),
+            }
+            for name, t in table.items():
+                rows.append(timed_row(name, t, dt, sets))
+            if not single:
+                # context: the two cuBLAS matrix-vector products of one u/v
+                # iteration at n's shape (bf16 K with bf16 vectors)
+                vc, uc = vu.to(dt)[:, :, None], uu.to(dt)[:, None, :]
+                ms_kv = time_ms(lambda K: torch.matmul(K, vc), sets)
+                ms_ut = time_ms(lambda K: torch.matmul(uc, K), sets)
+                log("time", f"cuBLAS at {B}x{M}x{N} {str(dt)[6:]} "
+                    f"({len(sets)} input copies): K @ v {ms_kv:.4f} ms, "
+                    f"u @ K {ms_ut:.4f} ms, sum {ms_kv + ms_ut:.4f} ms "
+                    f"(two reads of K; context, not the kernel's library "
+                    f"call)")
+            del sets
+
+    # the u/v solve against MAP-UOT's at one shape, on device tensors (a
+    # line, not a claim): 20 iterations each, order uv, fused, fused, uv
+    def solve_ms(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "uv":
+            ops.solve_uv_batched(Kub, aub, bub, cfg_fixed)
+        else:
+            ops.solve_fused_batched(Kub, aub, bub, cfg_fixed)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    solve_ms("uv"), solve_ms("fused")                # warm up
+    order = ("uv", "fused", "fused", "uv")
+    uv_ms = [(k, solve_ms(k)) for k in order]
+    log("e2e", f"B=8 2048x2048 fp32, {cfg_fixed.num_iters} iterations, "
+        f"device tensors (host clock, order {', '.join(order)}): "
+        + "; ".join(f"solve_{'uv' if k == 'uv' else 'fused'}_batched "
+                    f"{ms:.2f} ms" for k, ms in uv_ms)
+        + " — the u/v pass reads K once an iteration, MAP-UOT's pass reads "
+        "and writes the coupling")
+    del Kub, Kubh, Ku4, Ku4h
+
+    # ---- 17. result lines ------------------------------------------------------
     second = {"colsum", "fused_iteration", "resident_solve",
               "resident_stepped"}
     kernels = []
@@ -1382,7 +1656,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": replaces,
-            "launches": (launches3 if name in THIRD else launches2
+            "launches": (launches4 if name in FOURTH else launches3
+                         if name in THIRD else launches2
                          if name in second else launches)[name],
             "max_abs_err": errs[name], "ms": r32["ms"],
             "plain_ms": r32["plain_ms"], "bound_ms": r32["bound_ms"],
@@ -1392,7 +1667,8 @@ def main() -> int:
             "bf16_ms": r16["ms"], "bf16_bound_ms": r16["bound_ms"],
             "bf16_plain_ms": r16["plain_ms"],
             "bf16_library_ms": r16["library_ms"],
-            "main_path": ("third" if name in THIRD else "second"
+            "main_path": ("fourth" if name in FOURTH else "third"
+                          if name in THIRD else "second"
                           if name in second else "first")})
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import (UOTConfig, gibbs_kernel, sinkhorn_uot_baseline,
-                              sinkhorn_uot_fused)
+                              sinkhorn_uot_fused, sinkhorn_uot_uv)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
@@ -51,6 +51,10 @@ def main():
     P_auto, _ = ops.solve_fused(A0[:96], a[:96], b, cfg, impl="auto",
                                 device=dev)
     P_ref96, _ = sinkhorn_uot_fused(A0[:96], a[:96], b, cfg)
+    # 5) the POT u/v potential form on kernels l and m: one read-only pass
+    #    over K an iteration, the coupling written once
+    P_uv, _ = ops.solve_uv(A0, a, b, cfg, device=dev)
+    P_uv_ref, _, _ = sinkhorn_uot_uv(A0, a, b, cfg)
 
     print("device:", dev)
     print("max |baseline - fused|:", float((P_base - P_fused).abs().max()))
@@ -58,6 +62,8 @@ def main():
     print("max |fused - resident| (96x384):",
           float((P_ref96 - P_auto).abs().max()),
           " dispatch:", ops.dispatch_stats())
+    print("max |uv - uv kernels| (relative):",
+          float((P_uv - P_uv_ref).abs().max() / P_uv_ref.abs().max()))
     print("coupling mass:", float(P_fused.sum()),
           " (marginal masses: 1.0 / 1.3)")
     print("transport cost <C,P>:", float((C * P_fused).sum()))

@@ -21,15 +21,7 @@ from __future__ import annotations
 
 import torch
 
-
-def translation_noise_floor(amplification: float, dtype: torch.dtype) -> float:
-    """Magnitude below which a computed dual translation is rounding
-    jitter, not signal (own copy of ``repro.core.sinkhorn_uv``'s helper):
-    the translation multiplies a log-difference accurate to a few ulps by
-    ``amplification``, so near the fixed point the amplified noise would
-    stall a tight stationarity criterion. Translations under this floor
-    are zeroed."""
-    return amplification * 16 * float(torch.finfo(dtype).eps)
+from repro_torch.core.sinkhorn_uv import translation_noise_floor
 
 
 def sinkhorn_uot_log(C: torch.Tensor, a: torch.Tensor, b: torch.Tensor, cfg,

@@ -14,14 +14,19 @@ and bound with ctypes, each kernel beside its plain PyTorch version:
 * ``uot_geometry`` — kernels h (``batched_pc_colsum``), i
   (``batched_pc_first_iteration``) and j (``batched_pc_materialize``), the
   Gibbs tile of a point cloud computed from its coordinates
-  (``csrc/uot_geometry.cu``, the tile function in ``csrc/uot_gibbs.cuh``).
+  (``csrc/uot_geometry.cu``, the tile function in ``csrc/uot_gibbs.cuh``);
+* ``uot_uv_fused`` — kernels l (``uv_iteration``) and m
+  (``materialize_coupling``) of the u/v potential form, one problem
+  (``csrc/uot_uv_fused.cu``); their stack forms n
+  (``batched_uv_iteration``) and o (``batched_materialize_coupling``) are
+  in ``uot_batched``.
 
 ``ops`` holds the single-problem, batched, bucketed, resident and stepped
-solvers, their ``geometry=`` paths and the ``impl='auto'`` dispatch;
-``ref`` the plain oracles.
+solvers, their ``geometry=`` paths, the ``impl='auto'`` dispatch and the
+u/v solvers; ``ref`` the plain oracles.
 """
 from repro_torch.kernels import (ops, ref, uot_batched, uot_fused,
-                                 uot_geometry, uot_resident)
+                                 uot_geometry, uot_resident, uot_uv_fused)
 
 __all__ = ["ops", "ref", "uot_batched", "uot_fused", "uot_geometry",
-           "uot_resident"]
+           "uot_resident", "uot_uv_fused"]

@@ -28,10 +28,10 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# kernels c, d, e | a, b | f, g, k | h, i, j; the headers are hashed with
-# them
+# kernels c, d, e, n, o | a, b | f, g, k | h, i, j | l, m; the headers are
+# hashed with them
 SOURCES = ("uot_batched.cu", "uot_fused.cu", "uot_resident.cu",
-           "uot_geometry.cu")
+           "uot_geometry.cu", "uot_uv_fused.cu")
 HEADERS = ("uot_common.cuh", "uot_stream.cuh", "uot_gibbs.cuh")
 
 _LOCK = threading.Lock()
@@ -135,6 +135,18 @@ def load() -> ctypes.CDLL:
                 P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                 I, I, F, I, F, F, I, P]
             lib.uot_pc_first_iteration.restype = I
+            lib.uot_batched_uv_iteration.argtypes = [
+                P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P]
+            lib.uot_batched_uv_iteration.restype = I
+            lib.uot_uv_iteration.argtypes = [
+                P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P]
+            lib.uot_uv_iteration.restype = I
+            lib.uot_batched_materialize_coupling.argtypes = [
+                P, P, P, P, I, I, I, I, I, I, I, P]
+            lib.uot_batched_materialize_coupling.restype = I
+            lib.uot_materialize_coupling.argtypes = [
+                P, P, P, P, I, I, I, I, I, I, P]
+            lib.uot_materialize_coupling.restype = I
             lib.uot_resident_smem_bytes.argtypes = [I, I]
             lib.uot_resident_smem_bytes.restype = ctypes.c_longlong
             lib.uot_error_string.argtypes = [I]

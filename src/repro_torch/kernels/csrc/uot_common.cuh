@@ -66,6 +66,34 @@ __device__ __forceinline__ typename Raw<T, VEC>::type from_floats(
   return r;
 }
 
+// Store VEC floats as the output type O: 16-byte stores where the VEC
+// values fill whole 16-byte words, one 8-byte store for four bf16, else one
+// element. p must be aligned to VEC * sizeof(O) (at most 16 bytes).
+template <typename O, int VEC>
+__device__ __forceinline__ void store_floats(O* p, const float (&y)[VEC]) {
+  constexpr int kBytes = VEC * (int)sizeof(O);
+  if constexpr (VEC == 1) {
+    *p = from_f<O>(y[0]);
+  } else if constexpr (kBytes % 16 == 0) {
+    constexpr int per = 16 / (int)sizeof(O);
+#pragma unroll
+    for (int c = 0; c < kBytes / 16; ++c) {
+      uint4 r;
+      O* e = reinterpret_cast<O*>(&r);
+#pragma unroll
+      for (int k = 0; k < per; ++k) e[k] = from_f<O>(y[c * per + k]);
+      reinterpret_cast<uint4*>(p)[c] = r;
+    }
+  } else {
+    static_assert(kBytes == 8, "four bf16 values: one 8-byte store");
+    uint2 r;
+    O* e = reinterpret_cast<O*>(&r);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) e[k] = from_f<O>(y[k]);
+    *reinterpret_cast<uint2*>(p) = r;
+  }
+}
+
 template <int VEC>
 __device__ __forceinline__ void load_f32(const float* p, float (&x)[VEC]) {
 #pragma unroll

@@ -27,6 +27,11 @@
 // below, GibbsTile in uot_gibbs.cuh), so kernels h and i of the geometry
 // path are these same kernels with the tile computed from coordinates:
 // same grid, same plan, same summation order as c and d.
+//
+// The u/v pass (kernel n, and l at B = 1) is the Algorithm-1 pass in a
+// read-only mode (UV below): its row sums are those of K*v, its column
+// partials those of K*u, and it stores no tile. The materialize kernel
+// (o, and m at B = 1) is elementwise and at the end of this file.
 #pragma once
 
 #include "uot_common.cuh"
@@ -205,7 +210,17 @@ inline int colsum_checked(const void* A, float* partial, float* out, int B,
 // place; GibbsTile: computed from coordinates, kernel i, whose output A
 // is then write-only and whose two-pass variant recomputes the rows it
 // would have re-read). The arithmetic and its order do not depend on Src.
-template <typename T, int VEC, bool MASKED, bool ONEPASS, class Src>
+// UV: the read-only u/v pass of kernels n and l, which replace
+// src/repro/kernels/uot_batched.py:230 batched_uv_iteration and
+// uot_uv_fused.py:52 uv_iteration. A is the Gibbs kernel K and fcol is v:
+// phase 1's row sums are (K v)_i and its factors u_i = safe_pow(a, Kv, fi),
+// written to frow_out; phase 2 accumulates the UNSCALED tile times u
+// (K^T u: K*u, not K*v*u) into the column partials and stores nothing.
+// Bound: bytes, B*M*N*s read once + O(B*(M+N)), half of d's traffic; the
+// TPU's revisited K^T u block (uot_uv_fused.py:43-48, uot_batched.py:221-225)
+// is the per-block partials and the in-order reduction above.
+template <typename T, int VEC, bool MASKED, bool ONEPASS, class Src,
+          bool UV = false>
 __global__ void __launch_bounds__(kThreads)
     fused_iter_kernel(T* __restrict__ A, const typename Src::Args src_args,
                       const float* __restrict__ fcol,
@@ -275,18 +290,18 @@ __global__ void __launch_bounds__(kThreads)
       for (int p = 0; p < wpr; ++p) rs = __fadd_rn(rs, red[tid * wpr + p]);
       const float f = safe_pow(ab[r0 + tid], rs, fi, fi_one);
       frow_s[tid] = f;
-      if constexpr (MASKED || Src::kComputed)
+      if constexpr (MASKED || Src::kComputed || UV)
         frow_out[(size_t)b * M + r0 + tid] = f;
     }
     __syncthreads();
-    // phase 2: scale, store in place, accumulate the column partials
+    // phase 2: scale, store in place, accumulate the column partials (UV:
+    // accumulate K*u, store nothing)
     for (int v = tid; v < nvec; v += kThreads) {
       float f[VEC], acc[VEC];
-      load_f32<VEC>(fb + (size_t)v * VEC, f);
+      if constexpr (!UV) load_f32<VEC>(fb + (size_t)v * VEC, f);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) acc[k] = colacc[v * VEC + k];
       for (int r = 0; r < nrows; ++r) {
-        T* p = Ab + (size_t)(r0 + r) * N + (size_t)v * VEC;
         typename Raw<T, VEC>::type raw;
         if constexpr (ONEPASS)
           raw = load_raw<T, VEC>(tile + (size_t)r * N + (size_t)v * VEC);
@@ -297,10 +312,15 @@ __global__ void __launch_bounds__(kThreads)
         const float fr = frow_s[r];
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-          y[k] = __fmul_rn(__fmul_rn(x[k], f[k]), fr);
+          if constexpr (UV)
+            y[k] = __fmul_rn(x[k], fr);
+          else
+            y[k] = __fmul_rn(__fmul_rn(x[k], f[k]), fr);
           acc[k] = __fadd_rn(acc[k], y[k]);
         }
-        store_raw<T, VEC>(p, from_floats<T, VEC>(y));
+        if constexpr (!UV)
+          store_raw<T, VEC>(Ab + (size_t)(r0 + r) * N + (size_t)v * VEC,
+                            from_floats<T, VEC>(y));
       }
 #pragma unroll
       for (int k = 0; k < VEC; ++k) colacc[v * VEC + k] = acc[k];
@@ -321,13 +341,14 @@ inline size_t fused_smem_bytes(int N, int bm, int itemsize, int one_pass) {
   return head + (one_pass ? (size_t)bm * N * itemsize : 0);
 }
 
-template <typename T, int VEC, bool MASKED, bool ONEPASS, class Src>
+template <typename T, int VEC, bool MASKED, bool ONEPASS, class Src,
+          bool UV = false>
 int launch_fused(void* A, const typename Src::Args& src_args,
                  const float* fcol, const float* a, const uint8_t* mask,
                  float* colsum, float* frow, float* partial, int B, int M,
                  int N, int bm, int rows_per_cta, int R, float fi,
                  int fi_one, cudaStream_t stream) {
-  auto kern = fused_iter_kernel<T, VEC, MASKED, ONEPASS, Src>;
+  auto kern = fused_iter_kernel<T, VEC, MASKED, ONEPASS, Src, UV>;
   const size_t smem = fused_smem_bytes(N, bm, sizeof(T), ONEPASS);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -386,6 +407,121 @@ inline int fused_iteration_checked(void* A, const float* fcol,
   if (dtype == 1 && vec == 1) UOT_DISPATCH(__nv_bfloat16, 1);
   if (dtype == 1 && vec == 8 && N % 8 == 0) UOT_DISPATCH(__nv_bfloat16, 8);
 #undef UOT_DISPATCH
+  return -2;
+}
+
+// Checked entry of the u/v pass (kernels n and l) for the extern "C"
+// launchers: the streamed pass's plan and checks, with K read only, v in
+// the place of fcol, u (B, M) and K^T u (B, N) written.
+inline int uv_iteration_checked(const void* K, const float* v,
+                                const float* a, float* u, float* ktu,
+                                float* partial, int B, int M, int N,
+                                int dtype, int vec, int bm, int rows_per_cta,
+                                int R, int one_pass, float fi, int fi_one,
+                                void* stream) {
+  if (!valid_grid(B, M, N, rows_per_cta, R)) return -1;
+  if (bm <= 0 || (bm & (bm - 1)) != 0 || rows_per_cta % bm != 0) return -3;
+  if (u == nullptr || ktu == nullptr) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* Kp = const_cast<void*>(K);  // the UV mode never writes it
+#define UOT_UV(T, V)                                                      \
+  return one_pass                                                         \
+      ? launch_fused<T, V, false, true, LoadTile<T, V>, true>(            \
+            Kp, {}, v, a, nullptr, ktu, u, partial, B, M, N, bm,          \
+            rows_per_cta, R, fi, fi_one, s)                               \
+      : launch_fused<T, V, false, false, LoadTile<T, V>, true>(           \
+            Kp, {}, v, a, nullptr, ktu, u, partial, B, M, N, bm,          \
+            rows_per_cta, R, fi, fi_one, s)
+  if (dtype == 0 && vec == 1) UOT_UV(float, 1);
+  if (dtype == 0 && vec == 4 && N % 4 == 0) UOT_UV(float, 4);
+  if (dtype == 1 && vec == 1) UOT_UV(__nv_bfloat16, 1);
+  if (dtype == 1 && vec == 8 && N % 8 == 0) UOT_UV(__nv_bfloat16, 8);
+#undef UOT_UV
+  return -2;
+}
+
+// P = (K * u[:, None]) * v[None, :] over a stack: kernel o, and kernel m at
+// B = 1. Replaces src/repro/kernels/uot_batched.py:268
+// batched_materialize_coupling and uot_uv_fused.py:90 materialize_coupling
+// (bodies :260-265 and :82-87). Elementwise, two products rounded in the
+// reference's order, so it equals its plain version bit for bit. Bound:
+// bytes, B*M*N*(s_in + s_out) + O(B*(M+N)). Each row is walked by tpr
+// threads (a power of two, up to the block: rpp = kThreads / tpr rows per
+// pass), one VEC-wide vector of K each (16-byte loads where N and the
+// alignment allow, else VEC = 1); the blocks stride over the B*M rows, so
+// ragged edges need no mask beyond the row and column bounds.
+template <typename T, typename O, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    materialize_kernel(const T* __restrict__ K, const float* __restrict__ u,
+                       const float* __restrict__ v, O* __restrict__ P,
+                       int M, int N, int log2_tpr, long long rows) {
+  const int nvec = N / VEC;
+  const int tpr = 1 << log2_tpr;
+  const int rpp = kThreads >> log2_tpr;
+  const int c0 = threadIdx.x & (tpr - 1);
+  const long long stride = (long long)gridDim.x * rpp;
+  for (long long row = (long long)blockIdx.x * rpp + (threadIdx.x >> log2_tpr);
+       row < rows; row += stride) {
+    const float ur = u[row];
+    const float* vb = v + (size_t)(row / M) * N;
+    const T* kr = K + (size_t)row * N;
+    O* pr = P + (size_t)row * N;
+#pragma unroll 4
+    for (int c = c0; c < nvec; c += tpr) {
+      float x[VEC], f[VEC], y[VEC];
+      to_floats<T, VEC>(load_raw<T, VEC>(kr + (size_t)c * VEC), x);
+      load_f32<VEC>(vb + (size_t)c * VEC, f);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        y[k] = __fmul_rn(__fmul_rn(x[k], ur), f[k]);
+      store_floats<O, VEC>(pr + (size_t)c * VEC, y);
+    }
+  }
+}
+
+// Blocks per SM of the materialize kernel: 8 blocks of 256 threads fill an
+// SM's 2048 thread slots; the grid strides over the rows beyond that.
+constexpr int kMaterializeBlocksPerSm = 8;
+
+template <typename T, typename O, int VEC>
+int launch_materialize(const void* K, const float* u, const float* v,
+                       void* P, int B, int M, int N, int num_sms,
+                       cudaStream_t stream) {
+  const int nvec = N / VEC;
+  int log2_tpr = 0;
+  while ((1 << log2_tpr) < nvec && (1 << log2_tpr) < kThreads) ++log2_tpr;
+  const long long rows = (long long)B * M;
+  const int rpp = kThreads >> log2_tpr;
+  const long long want = (rows + rpp - 1) / rpp;
+  const int grid = (int)(want < (long long)num_sms * kMaterializeBlocksPerSm
+                             ? want
+                             : (long long)num_sms * kMaterializeBlocksPerSm);
+  materialize_kernel<T, O, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(K), u, v, static_cast<O*>(P), M, N, log2_tpr,
+      rows);
+  return (int)cudaGetLastError();
+}
+
+// Checked entry of the materialize kernel for the extern "C" launchers.
+// dtype / out_dtype: 0 = float32, 1 = bfloat16; vec: 1, or 16 bytes / the
+// itemsize of K (N a multiple of vec, the tensors 16-byte aligned).
+inline int materialize_checked(const void* K, const float* u,
+                               const float* v, void* P, int B, int M, int N,
+                               int dtype, int out_dtype, int vec,
+                               int num_sms, void* stream) {
+  if (B <= 0 || M <= 0 || N <= 0 || num_sms <= 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define UOT_MAT(T, O, V) \
+  return launch_materialize<T, O, V>(K, u, v, P, B, M, N, num_sms, s)
+#define UOT_MAT_OUT(T, V)                   \
+  if (out_dtype == 0) UOT_MAT(T, float, V); \
+  if (out_dtype == 1) UOT_MAT(T, __nv_bfloat16, V);
+  if (dtype == 0 && vec == 1) { UOT_MAT_OUT(float, 1) }
+  if (dtype == 0 && vec == 4 && N % 4 == 0) { UOT_MAT_OUT(float, 4) }
+  if (dtype == 1 && vec == 1) { UOT_MAT_OUT(__nv_bfloat16, 1) }
+  if (dtype == 1 && vec == 8 && N % 8 == 0) { UOT_MAT_OUT(__nv_bfloat16, 8) }
+#undef UOT_MAT_OUT
+#undef UOT_MAT
   return -2;
 }
 

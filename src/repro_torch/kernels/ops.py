@@ -1,4 +1,4 @@
-"""Public solver entry points over the port's kernels (a-k).
+"""Public solver entry points over the port's kernels (a-o).
 
 The port of the dense half of ``repro.kernels.ops``:
 
@@ -19,7 +19,11 @@ The port of the dense half of ``repro.kernels.ops``:
   ``solve_fused_stepped`` — the steppable lane pool the serving
   scheduler advances a chunk of iterations at a time (kernel e per
   iteration, or kernel g per chunk on the resident tier; kernel c for an
-  admitted lane's initial column sums).
+  admitted lane's initial column sums);
+* ``solve_uv`` / ``solve_uv_batched`` — the POT u/v potential form, one
+  read-only pass over K per iteration: kernel l (one problem) or n (a
+  stack) per iteration and once more for the final u, then kernel m or o
+  for the coupling.
 
 ``impl`` takes None or ``'kernel'`` (the streamed kernels), ``'resident'``
 (the resident tier; a shape over its budget raises ``ValueError``) or
@@ -77,7 +81,7 @@ from repro_torch.core.problem import UOTConfig, rescale_factors
 from repro_torch.device import resolve_device
 from repro_torch.geometry import Geometry, PointCloudGeometry
 from repro_torch.kernels import (uot_batched, uot_fused, uot_geometry,
-                                 uot_resident)
+                                 uot_resident, uot_uv_fused)
 from repro_torch.kernels.uot_batched import SMEM_LIMIT, pick_block_m
 
 __all__ = [
@@ -88,7 +92,8 @@ __all__ = [
     "solve_fused_bucketed", "bucket_shape", "bucket_problems",
     "canonical_batch", "bucketed_cache_stats", "reset_bucketed_cache_stats",
     "LaneState", "make_lane_state", "lane_admit", "lane_evict", "lane_done",
-    "solve_fused_stepped", "to_device", "to_host",
+    "solve_fused_stepped", "solve_uv", "solve_uv_batched", "to_device",
+    "to_host",
 ]
 
 # how often the tol batched solve reads back "all lanes converged"
@@ -611,6 +616,84 @@ def _solve_fused_resident_geometry(geom, a, b, cfg: UOTConfig, *,
     if single:
         return P[0], colsum[0], iters[0], err[0]
     return P, colsum, iters, err
+
+
+# ---- the u/v potential form ---------------------------------------------------
+
+def _uv_operand(K, dev: torch.device) -> torch.Tensor:
+    """K on ``dev`` in its own storage type: the u/v kernels only read it,
+    so a contiguous tensor already there is used as it is. bf16 stays bf16;
+    any other type becomes fp32 (as JAX promotes it against fp32 ``v``)."""
+    K = K.to(dev) if isinstance(K, torch.Tensor) else to_device(K, dev)
+    if K.dtype != torch.bfloat16:
+        K = K.float()
+    return K.contiguous()
+
+
+def solve_uv(K, a, b, cfg: UOTConfig, *, materialize: bool = True,
+             device=None):
+    """Read-only-pass u/v solve of one (M, N) problem (POT semantics:
+    ``u = (a / K v) ** fi``, ``v = (b / K^T u) ** fi``) on ``device``
+    (default the card).
+
+    K: (M, N) numpy array or tensor, read in its own storage type (a bf16
+    tensor takes the bf16 path; the sums, u and v are fp32); a: (M,); b:
+    (N,). Exactly ``cfg.num_iters`` iterations of kernel l, ``cfg.tol``
+    ignored, as the reference's ``ops.solve_uv``; one extra pass of l gives
+    the final u consistent with v (its ``K^T u`` is not used), and kernel m
+    the coupling. Returns ``(P or None, (u, v))``: P (M, N) fp32 (None with
+    ``materialize=False``), u (M,), v (N,). Rows wider than one block's
+    column accumulator raise ``ValueError`` on every device (the wide-N
+    half-pass kernels are a later slice).
+    """
+    dev = resolve_device(device)
+    K = _uv_operand(K, dev)
+    if K.dim() != 2:
+        raise ValueError(f"K must be (M, N), got {tuple(K.shape)}")
+    M, N = K.shape
+    uot_batched.plan_for(1, M, N, K.element_size())
+    a, b = _marginals(a, b, dev)
+    fi = cfg.fi
+    v = torch.ones(N, dtype=torch.float32, device=dev)
+    for _ in range(cfg.num_iters):
+        _, ktu = uot_uv_fused.uv_iteration(K, v, a, fi=fi)
+        v = rescale_factors(b, ktu, fi)
+    u, _ = uot_uv_fused.uv_iteration(K, v, a, fi=fi)
+    P = uot_uv_fused.materialize_coupling(K, u, v) if materialize else None
+    return P, (u, v)
+
+
+def solve_uv_batched(K, a, b, cfg: UOTConfig, *, materialize: bool = True,
+                     impl: str | None = None, device=None):
+    """Batched read-only-pass u/v solve: K (B, M, N), a (B, M), b (B, N).
+
+    As ``solve_uv`` over a stack, on kernels n (per iteration and for the
+    final u) and o (the coupling). ``impl`` is None or ``'kernel'``: there
+    is no resident tier, since the u/v pass is read-only and its streamed
+    form already moves only M*N read bytes per iteration; the reference's
+    ``impl='jnp'`` is ``device='cpu'`` here. Returns ``(P or None, (u,
+    v))`` with P (B, M, N) fp32, u (B, M), v (B, N).
+    """
+    if impl not in (None, "kernel"):
+        raise ValueError(f"solve_uv_batched has no resident tier; impl must "
+                         f"be None or 'kernel' (the reference's 'jnp' is "
+                         f"device='cpu'), got {impl!r}")
+    dev = resolve_device(device)
+    K = _uv_operand(K, dev)
+    if K.dim() != 3:
+        raise ValueError(f"K must be (B, M, N), got {tuple(K.shape)}")
+    B, M, N = K.shape
+    uot_batched.plan_for(B, M, N, K.element_size())
+    a, b = _marginals(a, b, dev)
+    fi = cfg.fi
+    v = torch.ones((B, N), dtype=torch.float32, device=dev)
+    for _ in range(cfg.num_iters):
+        _, ktu = uot_batched.batched_uv_iteration(K, v, a, fi=fi)
+        v = rescale_factors(b, ktu, fi)
+    u, _ = uot_batched.batched_uv_iteration(K, v, a, fi=fi)
+    P = (uot_batched.batched_materialize_coupling(K, u, v) if materialize
+         else None)
+    return P, (u, v)
 
 
 # ---- steppable solving: explicit carried state for continuous batching -------

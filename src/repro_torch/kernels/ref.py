@@ -32,3 +32,30 @@ def batched_fused_iteration_ref(A, factor_col, a, *, fi: float):
 
 def batched_colsum_ref(A):
     return A.float().sum(dim=1)
+
+
+def uv_iteration_ref(K, v, a, *, fi: float):
+    """Oracle for ``uot_uv_fused.uv_iteration``: returns (u, K^T u)."""
+    K = K.float()
+    u = rescale_factors(a.float(), K @ v.float(), fi)
+    return u, K.T @ u
+
+
+def materialize_coupling_ref(K, u, v):
+    """Oracle for ``uot_uv_fused.materialize_coupling``: diag(u) K diag(v)
+    in fp32."""
+    return u.float()[:, None] * K.float() * v.float()[None, :]
+
+
+def batched_uv_iteration_ref(K, v, a, *, fi: float):
+    """Oracle for ``uot_batched.batched_uv_iteration``: the
+    single-problem oracle over a stack."""
+    outs = [uv_iteration_ref(K[i], v[i], a[i], fi=fi)
+            for i in range(K.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def batched_materialize_coupling_ref(K, u, v):
+    return torch.stack([materialize_coupling_ref(K[i], u[i], v[i])
+                        for i in range(K.shape[0])])

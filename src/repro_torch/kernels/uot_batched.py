@@ -1,7 +1,9 @@
-"""Batched MAP-UOT kernels c, d and e: CUDA wrappers and plain versions.
+"""Batched kernels c, d, e, n and o: CUDA wrappers and plain versions.
 
 The port of ``repro.kernels.uot_batched``'s ``batched_colsum``,
-``batched_fused_iteration`` and ``batched_fused_iteration_frow``. Each
+``batched_fused_iteration`` and ``batched_fused_iteration_frow`` (MAP-UOT's
+Algorithm 1), and ``batched_uv_iteration`` and
+``batched_materialize_coupling`` (the u/v potential form). Each
 wrapper takes the plain PyTorch version beside it for tensors on the CPU,
 launches the hand-written CUDA kernel (``csrc/uot_batched.cu``, built at
 first use) for tensors on the card, and raises for anything else. There is
@@ -15,7 +17,10 @@ Differences from the TPU kernels, all documented in the CUDA source:
 * column sums are per-block partials reduced in a fixed order, so a
   launch gives the same bits on every run;
 * kernel e skips frozen lanes entirely: their tile, carried column sums
-  (updated in place only for live lanes) and ``frow`` rows are untouched.
+  (updated in place only for live lanes) and ``frow`` rows are untouched;
+* kernel n is kernel d's pass in a read-only mode, on d's launch plan:
+  the row sums of ``K * v`` give ``u``, the column partials sum the
+  unscaled ``K * u``, and nothing is stored but ``u`` and ``K^T u``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per wrapper call on
 the card; the column-sum reduction rides in the same call) and
@@ -31,9 +36,9 @@ import torch
 from repro_torch.core.problem import rescale_factors
 
 LAUNCHES = {"batched_colsum": 0, "batched_fused_iteration": 0,
-            "batched_fused_iteration_frow": 0}
-PLAIN_CALLS = {"batched_colsum": 0, "batched_fused_iteration": 0,
-               "batched_fused_iteration_frow": 0}
+            "batched_fused_iteration_frow": 0, "batched_uv_iteration": 0,
+            "batched_materialize_coupling": 0}
+PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 # Hopper (H100 SXM) facts the launch plan is built from
 NUM_SMS = 132
@@ -336,4 +341,130 @@ def _launch_fused(A, fcol, a, mask, colsum, frow, fi, name):
         plan.block_m, plan.rows_per_cta, plan.ctas, int(plan.one_pass),
         float(fi), int(fi == 1.0), _stream())
     LAUNCHES[name] += 1
+    _build.check(code, name)
+
+
+# ---- kernels n and o: the u/v potential form ---------------------------------
+
+def _uv_math(K, v, a, fi):
+    """u = safe_pow(a, K v, fi) and K^T u over a stack, in fp32, as the
+    reference's kernel body computes them (uot_batched.py:210-225)."""
+    Kf = K.float()
+    u = rescale_factors(a, (Kf * v[:, None, :]).sum(dim=2), fi)
+    return u, (Kf * u[:, :, None]).sum(dim=1)
+
+
+def _materialize_math(K, u, v, out_dtype):
+    """(K * u[:, None]) * v[None, :] per problem: two fp32 products in the
+    reference's order, rounded once to ``out_dtype``."""
+    return ((K.float() * u[:, :, None]) * v[:, None, :]).to(out_dtype)
+
+
+def batched_uv_iteration_plain(K, v, a, *, fi: float):
+    """Plain version of kernel n: ``(u, ktu)``, (B, M) and (B, N) fp32."""
+    PLAIN_CALLS["batched_uv_iteration"] += 1
+    return _uv_math(K, v, a, fi)
+
+
+def batched_uv_iteration(K: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
+                         *, fi: float):
+    """One u/v iteration's matrix work for a stack, in a single read of K.
+
+    K: (B, M, N) fp32 or bf16, never written; v: (B, N) fp32; a: (B, M)
+    fp32. Returns ``(u, ktu)`` with u = safe_pow(a, K v, fi) (B, M) and
+    ktu = K^T u (B, N), fp32; the caller finishes with v' = (b / ktu) ** fi.
+    """
+    _check_stack(K, "K")
+    B, M, N = K.shape
+    _check_vec(v, (B, N), "v")
+    _check_vec(a, (B, M), "a")
+    if _route(K) == "plain":
+        return batched_uv_iteration_plain(K, v, a, fi=fi)
+    _check_cuda(K, v, a)
+    u = torch.empty((B, M), dtype=torch.float32, device=K.device)
+    ktu = torch.empty((B, N), dtype=torch.float32, device=K.device)
+    if B * M * N == 0:
+        return u.fill_(1.0), ktu.zero_()     # K v = 0 maps to factor 1
+    _launch_uv(K, v, a, u, ktu, fi, LAUNCHES, "batched_uv_iteration")
+    return u, ktu
+
+
+def _launch_uv(K, v, a, u, ktu, fi, counts, name):
+    """Launch the u/v pass on kernel d's plan: kernel n for a (B, M, N)
+    stack, kernel l for one (M, N) problem (``counts[name]`` counts it)."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    M, N = K.shape[-2:]
+    B = K.shape[0] if K.dim() == 3 else 1
+    plan = plan_for(B, M, N, K.element_size())
+    partial = torch.empty((B, plan.ctas, N), dtype=torch.float32,
+                          device=K.device)
+    ptrs = (K.data_ptr(), v.data_ptr(), a.data_ptr(), u.data_ptr(),
+            ktu.data_ptr(), partial.data_ptr())
+    rest = (M, N, _DTYPE_CODE[K.dtype], _vec_for(plan, K, v, partial),
+            plan.block_m, plan.rows_per_cta, plan.ctas, int(plan.one_pass),
+            float(fi), int(fi == 1.0), _stream())
+    if K.dim() == 3:
+        code = lib.uot_batched_uv_iteration(*ptrs, B, *rest)
+    else:
+        code = lib.uot_uv_iteration(*ptrs, *rest)
+    counts[name] += 1
+    _build.check(code, name)
+
+
+def _check_out_dtype(out_dtype) -> None:
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+
+
+def batched_materialize_coupling_plain(K, u, v, *,
+                                       out_dtype=torch.float32):
+    """Plain version of kernel o: (B, M, N) in ``out_dtype``."""
+    PLAIN_CALLS["batched_materialize_coupling"] += 1
+    return _materialize_math(K, u, v, out_dtype)
+
+
+def batched_materialize_coupling(K: torch.Tensor, u: torch.Tensor,
+                                 v: torch.Tensor, *,
+                                 out_dtype: torch.dtype = torch.float32):
+    """P_b = diag(u_b) K_b diag(v_b) for every problem of the stack.
+
+    K: (B, M, N) fp32 or bf16; u: (B, M), v: (B, N) fp32. Returns P
+    (B, M, N) in ``out_dtype`` (fp32 or bf16), each entry
+    ``(K * u) * v`` rounded as the plain version rounds it.
+    """
+    _check_stack(K, "K")
+    _check_out_dtype(out_dtype)
+    B, M, N = K.shape
+    _check_vec(u, (B, M), "u")
+    _check_vec(v, (B, N), "v")
+    if _route(K) == "plain":
+        return batched_materialize_coupling_plain(K, u, v,
+                                                  out_dtype=out_dtype)
+    _check_cuda(K, u, v)
+    P = torch.empty((B, M, N), dtype=out_dtype, device=K.device)
+    if B * M * N:
+        _launch_materialize(K, u, v, P, LAUNCHES,
+                            "batched_materialize_coupling")
+    return P
+
+
+def _launch_materialize(K, u, v, P, counts, name):
+    """Launch kernel o for a (B, M, N) stack, kernel m for one (M, N)
+    problem (``counts[name]`` counts it)."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    M, N = K.shape[-2:]
+    width = 16 // K.element_size()
+    vec = width if N % width == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (K, v, P)) else 1
+    args = (M, N, _DTYPE_CODE[K.dtype], _DTYPE_CODE[P.dtype], vec, NUM_SMS,
+            _stream())
+    ptrs = (K.data_ptr(), u.data_ptr(), v.data_ptr(), P.data_ptr())
+    if K.dim() == 3:
+        code = lib.uot_batched_materialize_coupling(*ptrs, K.shape[0], *args)
+    else:
+        code = lib.uot_materialize_coupling(*ptrs, *args)
+    counts[name] += 1
     _build.check(code, name)

@@ -42,11 +42,12 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-def _check_problem(A: torch.Tensor) -> None:
+def _check_problem(A: torch.Tensor, name: str = "A") -> None:
     if A.dim() != 2:
-        raise ValueError(f"A must be (M, N), got {tuple(A.shape)}")
+        raise ValueError(f"{name} must be (M, N), got {tuple(A.shape)}")
     if A.dtype not in _DTYPE_CODE:
-        raise TypeError(f"A must be float32 or bfloat16, got {A.dtype}")
+        raise TypeError(f"{name} must be float32 or bfloat16, got "
+                        f"{A.dtype}")
 
 
 # ---- kernel a: column sums ---------------------------------------------------

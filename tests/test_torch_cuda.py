@@ -1,6 +1,6 @@
-"""The port's CUDA kernels a, b, f, g, h, i, j and k against their plain
-versions on the card (all tests carry the ``cuda`` marker and skip
-without a card).
+"""The port's CUDA kernels a, b, f, g, h, i, j, k, l, m, n and o against
+their plain versions on the card (all tests carry the ``cuda`` marker and
+skip without a card).
 
 This file imports neither JAX nor the reference package, so it runs on a
 machine that has only PyTorch for CUDA:
@@ -24,6 +24,11 @@ same ``expf``), one bf16 ulp in bf16; h and i against their plain versions
 at the one-call tolerance; k as f. Inside the port, bit for bit: h equals
 c over j's output, i equals d over it, and k equals f over it (P, colsum,
 iteration counts, drift).
+
+The u/v kernels: l and n (u and K^T u, fp32) at the one-call tolerance;
+m and o (two rounded products, then the output rounding) equal their plain
+versions bit for bit; ``solve_uv`` / ``solve_uv_batched`` against the plain
+u/v iterates at u, v 3e-5 and P 3e-4 per entry.
 """
 import numpy as np
 import pytest
@@ -34,6 +39,7 @@ from repro_torch.kernels import uot_batched as tub
 from repro_torch.kernels import uot_fused as tuf
 from repro_torch.kernels import uot_geometry as tug
 from repro_torch.kernels import uot_resident as tur
+from repro_torch.kernels import uot_uv_fused as tuv
 
 F32_CALL = 1e-5       # one kernel call, fp32
 F32_SOLVE = 3e-5      # a whole resident solve, fp32
@@ -261,3 +267,89 @@ def test_kernel_k_matches_plain_version_and_f(cuda, dname, B, M, N, d, tol):
     Pf, csf, itf, errf = tur.resident_solve(K, a, b, **kw)
     for got in ((P2, cs2, it2, err2), (Pf, csf, itf, errf)):
         assert all(torch.equal(u, v) for u, v in zip(got, (P, cs, it, err)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("B,M,N", [(3, 1500, 2047), (2, 300, 1504),
+                                   (1, 9, 16384), (4, 77, 33)])
+@pytest.mark.parametrize("fi", [1.0, 0.9])
+def test_kernels_n_o_match_plain_versions(cuda, dname, B, M, N, fi):
+    tdt = DTYPES[dname]
+    K, a, _ = (torch.tensor(x, device=cuda) for x in stack(B, M, N, M + N))
+    K = K.to(tdt)
+    g = torch.Generator(device=cuda).manual_seed(N)
+    v = torch.rand((B, N), generator=g, device=cuda) + 0.5
+    u, ktu = tub.batched_uv_iteration(K, v, a, fi=fi)
+    u_p, ktu_p = tub.batched_uv_iteration_plain(K, v, a, fi=fi)
+    close(u, u_p, "float32")
+    close(ktu, ktu_p, "float32")
+    u2, ktu2 = tub.batched_uv_iteration(K, v, a, fi=fi)
+    assert torch.equal(u2, u) and torch.equal(ktu2, ktu)
+    for out in DTYPES.values():
+        P = tub.batched_materialize_coupling(K, u, v, out_dtype=out)
+        assert P.dtype == out and torch.equal(
+            P, tub.batched_materialize_coupling_plain(K, u, v,
+                                                      out_dtype=out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("M,N", [(4096, 4096), (1500, 2047), (77, 33)])
+def test_kernels_l_m_match_plain_versions(cuda, dname, M, N):
+    tdt = DTYPES[dname]
+    K, a, _ = (torch.tensor(x[0], device=cuda)
+               for x in stack(1, M, N, M * N))
+    K = K.to(tdt)
+    g = torch.Generator(device=cuda).manual_seed(M)
+    v = torch.rand(N, generator=g, device=cuda) + 0.5
+    u, ktu = tuv.uv_iteration(K, v, a, fi=0.9)
+    u_p, ktu_p = tuv.uv_iteration_plain(K, v, a, fi=0.9)
+    close(u, u_p, "float32")
+    close(ktu, ktu_p, "float32")
+    P = tuv.materialize_coupling(K, u, v)
+    assert torch.equal(P, tuv.materialize_coupling_plain(K, u, v))
+    assert torch.equal(tuv.materialize_coupling(K, u, v), P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", list(DTYPES))
+def test_solve_uv_paths_match_plain_iterates(cuda, dname):
+    from repro_torch.core import UOTConfig
+    from repro_torch.core.problem import rescale_factors
+    from repro_torch.core.sinkhorn_uv import sinkhorn_uot_uv_fused
+    from repro_torch.kernels import ops
+    tdt = DTYPES[dname]
+    cfg = UOTConfig(reg=0.1, reg_m=1.0, num_iters=20)
+    K, a, b = (torch.tensor(x, device=cuda) for x in stack(3, 300, 500, 4))
+    K = K.to(tdt)
+    for k in range(3):
+        tuv.reset_counts()
+        P, (u, v) = ops.solve_uv(K[k], a[k], b[k], cfg)
+        assert tuv.LAUNCHES == {"uv_iteration": 21,
+                                "materialize_coupling": 1}
+        assert not any(tuv.PLAIN_CALLS.values())
+        _, (_, v_p), _ = sinkhorn_uot_uv_fused(K[k], a[k], b[k], cfg)
+        Kf = K[k].float()
+        u_p = rescale_factors(a[k], Kf @ v_p, cfg.fi)
+        close_rel(v, v_p, 3e-5)
+        close_rel(u, u_p, 3e-5)
+        close_rel(P, u_p[:, None] * Kf * v_p[None, :], 3e-4)
+    tub.reset_counts()
+    P, (u, v) = ops.solve_uv_batched(K, a, b, cfg)
+    assert tub.LAUNCHES["batched_uv_iteration"] == 21
+    assert tub.LAUNCHES["batched_materialize_coupling"] == 1
+    for k in range(3):
+        Pk, (uk, vk) = ops.solve_uv(K[k], a[k], b[k], cfg)
+        close_rel(P[k], Pk, 3e-4)
+        close_rel(v[k], vk, 3e-5)
+
+
+def close_rel(got, want, rtol):
+    """Per entry, rtol of the value plus the subnormal slack of
+    ``close``."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert got.shape == want.shape
+    top = np.abs(want).max()
+    bad = np.abs(got - want) > rtol * np.abs(want) + TINY + FLOOR * top
+    assert not bad.any(), (int(bad.sum()), want.size)
